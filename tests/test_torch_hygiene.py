@@ -1,0 +1,120 @@
+"""Hygiene of the port: it imports nothing of JAX or the JAX package, its
+entry points refuse to fall back to the CPU when CUDA is missing, and its
+kernel module imports and runs the CPU path without building anything."""
+
+import ast
+import os
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import wholegraph_tpu_torch as wt
+from wholegraph_tpu_torch import kernels
+from wholegraph_tpu_torch.embedding import Embedding
+from wholegraph_tpu_torch.graph import GraphStructure
+from wholegraph_tpu_torch.models import HomoGNN
+from wholegraph_tpu_torch.ops import gather_kernels as G
+from wholegraph_tpu_torch.ops import spmm_kernels as S
+from wholegraph_tpu_torch.utils.error import CudaError
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "wholegraph_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "wholegraph_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            for arg in node.args:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    yield arg.value.split(".")[0]
+
+
+def test_port_imports_no_jax_nor_the_jax_package():
+    files = _port_files()
+    assert os.path.join(ROOT, "chip_smoke.py") in files and len(files) > 20
+    bad = {(os.path.relpath(f, ROOT), m) for f in files for m in _imported_roots(f)
+           if m in FORBIDDEN}
+    assert not bad, f"port files import JAX or the JAX package: {sorted(bad)}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", ["embedding", "graph", "model", "build_synthetic"])
+def test_default_device_raises_without_cuda(no_cuda, entry):
+    calls = {
+        "embedding": lambda: Embedding.create(10, 4),
+        "graph": lambda: GraphStructure.from_coo(np.array([0, 1]), np.array([1, 0]), 2),
+        "model": lambda: HomoGNN(8, 8, 2),
+        "build_synthetic": lambda: wt.build_synthetic(wt.SageTrainConfig(n_nodes=10)),
+    }
+    with pytest.raises(CudaError, match="CUDA is not available"):
+        calls[entry]()
+
+
+def test_kernels_import_and_cpu_path_build_nothing(monkeypatch):
+    def no_subprocess(*a, **k):
+        raise AssertionError("a CPU run must not start nvcc")
+
+    monkeypatch.setattr(subprocess, "Popen", no_subprocess)
+    for k in (G.ROW_GATHER, G.ROW_SCATTER, G.SAMPLE_COLS, S.NEIGHBOR_AGG):
+        monkeypatch.setattr(k, "launches", 0)
+    cfg = wt.SageTrainConfig(n_nodes=50, dim=8, hidden=8, num_classes=3, batch=4, fanouts=(2, 2))
+    state = wt.build_synthetic(cfg, device="cpu", seed=0)
+    c = torch.arange(4, dtype=torch.int32)
+    assert np.isfinite(float(wt.train_step(state, c, state.labels[c.long()], seed=0)))
+    assert not kernels._libs
+    assert all(k.launches == 0 for k in (G.ROW_GATHER, G.ROW_SCATTER, G.SAMPLE_COLS,
+                                          S.NEIGHBOR_AGG))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kernels, "find_nvcc", lambda: None)
+    with pytest.raises(CudaError, match="nvcc not found"):
+        kernels.build_all()
+    assert not os.listdir(tmp_path)
+    assert len(kernels.sources()) == 4
+
+
+def test_wrappers_do_not_fall_back_off_the_cpu():
+    """A tensor on a device other than the CPU never reaches a plain version."""
+    meta = torch.empty(16, 8, device="meta")
+    ids = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(CudaError):
+        G.gather_rows(meta, ids)
+    with pytest.raises(CudaError):
+        G.gather_rows(torch.zeros(16, 8), ids)  # a CPU/other mix
+    with pytest.raises(CudaError):
+        S.neighbor_reduce(meta, torch.zeros(2, 3, dtype=torch.int32, device="meta"),
+                          torch.ones(2, 3, dtype=torch.bool, device="meta"), True)
+
+
+def test_library_path_tracks_the_source(tmp_path, monkeypatch):
+    src = tmp_path / "k.cu"
+    src.write_text("// a")
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "_build"))
+    p1 = kernels.library_path(str(src))
+    src.write_text("// b")
+    p2 = kernels.library_path(str(src))
+    assert p1 != p2 and os.path.basename(p1).startswith("libk-")

@@ -1,0 +1,29 @@
+"""wholegraph_tpu_torch: the PyTorch and CUDA port of wholegraph_tpu.
+
+The port runs on one NVIDIA Hopper card: plain tensor code is PyTorch, and
+each TPU kernel of the ported path is a hand-written CUDA kernel for
+``sm_90a`` (``csrc/``, built at first use by :mod:`.kernels`). Module names
+mirror the JAX package's, so each counterpart is easy to find. Entry points
+take ``device="cuda"`` by default and raise when CUDA is missing; an
+explicit ``device="cpu"`` runs the kernels' plain PyTorch versions.
+
+The first slice is the sampled GraphSAGE training step (:mod:`.train`).
+"""
+
+from . import embedding, graph, kernels, models, ops, utils
+from .train import SageTrainConfig, SageTrainState, build_synthetic, train_step
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "embedding",
+    "graph",
+    "kernels",
+    "models",
+    "ops",
+    "utils",
+    "SageTrainConfig",
+    "SageTrainState",
+    "build_synthetic",
+    "train_step",
+]
