@@ -1,23 +1,42 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path, the sampled GraphSAGE training step
-(``wholegraph_tpu_torch.train``), through its public entry points:
+Drives the port's paths through their public entry points: the sampled
+GraphSAGE training step (``wholegraph_tpu_torch.train``) with its embedding
+in device memory, the host-memory tier's gather (``HostEmbedding.gather``)
+at ``bench_host_gather``'s shapes, and the same training step with the
+table and LazyAdam's m and v in pinned host memory. In order:
 
 1. builds every hand-written kernel from ``wholegraph_tpu_torch/csrc``;
-2. builds the full-width synthetic state (``SageTrainConfig()``: 2M nodes,
+2. measures the host link: the pinned->card and card->pinned rate of a
+   1 GiB ``copy_`` (CUDA events), the yardstick printed beside kernels E and
+   F (their bounds take the link's data-sheet peak, LINK_BYTES_PER_S);
+3. builds the full-width synthetic state (``SageTrainConfig()``: 2M nodes,
    dim 256, batch 1024, fanouts (10, 15)) and runs one step that records the
    arguments of every kernel wrapper call;
-3. holds each kernel against its plain PyTorch version on exactly those
+4. holds kernels A-D against their plain PyTorch versions on exactly those
    tensors (plus A in bf16 and D as a sum), and times kernel, plain version
    and one PyTorch library call computing the same function;
-4. runs a tiny step three times on the GPU and on the CPU from the same
-   numpy-made graph, table and weights: the RNG and samples must be
-   bit-equal, the losses and touched rows equal within tolerance;
-5. resets the launch counters, trains STEPS full-width steps timed by CUDA
-   events (per step and per stage of ``train.STAGES``), and fails if any
-   kernel of the path was not launched;
-6. profiles ten more steps with ``torch.profiler`` for the device's kernel
-   time per step and the kernels that take most of it;
+5. runs a tiny step three times from the same numpy-made graph, table and
+   weights on the card and on the CPU, with the embedding in device memory
+   and in the host tier: the RNG and samples must be bit-equal, losses and
+   touched rows equal within tolerance, untouched rows unchanged, and every
+   cached row equal to its host row;
+6. the device-memory path: resets the launch counters, trains STEPS
+   full-width steps timed by CUDA events (per step and per stage of
+   ``train.STAGES``), fails if any of kernels A-D was not launched, and
+   profiles ten more steps with ``torch.profiler``;
+7. the host gather: a 4,000,000 x 256 f32 pinned table behind an empty
+   cache, batch 524,288, uniform ids and ids clustered in a span of
+   1.25 x batch rows; kernel E bit-equal to its plain version, its rate
+   against the link's, and the library routes (a CPU ``index_select`` into
+   pinned staging and a copy; a span ``copy_`` and a take on the card);
+8. the host-tier path: ``SageTrainConfig()`` with ``cache_ratio=0.25`` and
+   the top-degree rows cached; one captured step whose every E and F call is
+   held against its plain version (F by its written rows and a sample of
+   untouched rows), and so is every A and B call on the cache's lines; then
+   HOST_STEPS timed steps with the stage split, the
+   cache hit fraction, peak device memory and pinned bytes, failing if any
+   of kernels A-F was not launched;
 
 then prints a ``kernels`` JSON line, the card's name and power limit, and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -40,11 +59,15 @@ if not torch.cuda.is_available():
 
 import wholegraph_tpu_torch as wt  # noqa: E402
 from wholegraph_tpu_torch import kernels  # noqa: E402
-from wholegraph_tpu_torch.embedding import Embedding, LazyAdam  # noqa: E402
+from wholegraph_tpu_torch.embedding import (Embedding, HostEmbedding, LazyAdam,  # noqa: E402
+                                            hot_ids_by_degree)
 from wholegraph_tpu_torch.embedding import embedding as emb_mod  # noqa: E402
+from wholegraph_tpu_torch.embedding import host_embedding as host_mod  # noqa: E402
 from wholegraph_tpu_torch.graph import GraphStructure  # noqa: E402
 from wholegraph_tpu_torch.models import HomoGNN  # noqa: E402
+from wholegraph_tpu_torch.ops import KERNELS  # noqa: E402
 from wholegraph_tpu_torch.ops import gather_kernels as G  # noqa: E402
+from wholegraph_tpu_torch.ops import host_kernels as H  # noqa: E402
 from wholegraph_tpu_torch.ops import rng  # noqa: E402
 from wholegraph_tpu_torch.ops import sampling as sampling_mod  # noqa: E402
 from wholegraph_tpu_torch.ops import spmm_kernels as S  # noqa: E402
@@ -52,7 +75,10 @@ from wholegraph_tpu_torch.train import STAGES  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+LINK_BYTES_PER_S = 64e9     # H100 SXM PCIe Gen5 x16: 128 GB/s both ways (NVIDIA data sheet)
 STEPS = 100                 # timed full-width steps (p90 has 10 beyond it)
+HOST_STEPS = 30             # timed host-tier steps (p90 has 3 beyond it)
+HOST_CACHE_RATIO = 0.25     # __graft_entry__.py's host-tier cache_ratio
 F32_EPS = float(np.finfo(np.float32).eps)
 BF16_EPS = 2.0 ** -7
 
@@ -85,12 +111,28 @@ def bound_ms(nbytes, ops=0.0):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def link_bound_ms(link_bytes, hbm_bytes):
+    """Least time for bytes that cross the host link at its data-sheet peak
+    and bytes that stay in device memory."""
+    return max(link_bytes / LINK_BYTES_PER_S, hbm_bytes / HBM_BYTES_PER_S) * 1e3, "bytes"
+
+
+def link_yardsticks(t, link_bytes, delivered, copy_gbps):
+    """Beside a host-row call's times: the ms its link bytes take at this
+    run's ``copy_`` rate, and its delivered GB/s against the link's peak and
+    against that rate."""
+    t.update(copy_ms=link_bytes / (copy_gbps * 1e6), delivered_GBps=delivered / t["ms"] / 1e6)
+    t.update(peak_share=t["delivered_GBps"] / (LINK_BYTES_PER_S / 1e9),
+             copy_share=t["delivered_GBps"] / copy_gbps)
+    return t
+
+
 @contextlib.contextmanager
 def capture(module, name, calls):
     """Record the arguments of every call of ``module.name`` (a kernel
-    wrapper as the main path looks it up) into ``calls``. Nothing but the
+    wrapper as the path looks it up) into ``calls``. Nothing but the
     embedding's tables is written after such a call, and the scatter
-    check works on copies of those."""
+    checks work on copies of those or on their written rows."""
     fn = getattr(module, name)
 
     def rec(*args):
@@ -108,16 +150,49 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
 
 
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def read_launches():
+    return {k.name: k.launches for k in KERNELS}
+
+
+def free_pinned():
+    """Return cached pinned blocks to the system (PyTorch's caching host
+    allocator keeps freed ones); True where this PyTorch offers the call."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fn = getattr(torch._C, "_host_emptyCache", None)
+    if fn is not None:
+        fn()
+    return fn is not None
+
+
+def pinned_bytes(tensors):
+    """(bytes the tensors asked for, the caching host allocator's own count
+    of the pinned bytes it holds -- ``allocated_bytes.current`` of
+    ``torch.cuda.host_memory_stats()``, active and cached blocks at their
+    rounded sizes -- or None where this PyTorch lacks that count)."""
+    asked = sum(t.untyped_storage().nbytes() for t in tensors)
+    fn = getattr(torch.cuda, "host_memory_stats", None)
+    held = fn().get("allocated_bytes.current") if fn is not None else None
+    return asked, held
+
+
 # ---------------------------------------------------------------------------
 # kernel checks on the main path's own tensors
 # ---------------------------------------------------------------------------
 
 
-def timings(case, kernel, plain, library, bound):
+def timings(case, kernel, plain, library, bound, iters=20, plain_iters=20):
     """One main-path call's times (ms, CUDA events) beside its bound."""
     b_ms, by = bound
-    return {"case": case, "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-            "library_ms": cuda_ms(library), "bound_ms": b_ms, "bound_by": by}
+    return {"case": case, "ms": cuda_ms(kernel, iters),
+            "plain_ms": cuda_ms(plain, plain_iters, warmup=min(3, plain_iters)),
+            "library_ms": cuda_ms(library, plain_iters, warmup=min(3, plain_iters)),
+            "bound_ms": b_ms, "bound_by": by}
 
 
 def check_gather(calls):
@@ -213,6 +288,31 @@ def check_neighbor_agg(calls):
     return errs, times
 
 
+def time_host_gather(case, table, slots, link):
+    """Kernel E on one call: times beside its bound at the link's peak and
+    the measured ``copy_`` rate, and the library route a caller without E
+    would take: a CPU
+    ``index_select`` of the valid rows into pinned staging, then a
+    non-blocking copy to the card (the ids sit on the CPU beforehand)."""
+    rb = table.shape[1] * table.element_size()
+    valid = (slots >= 0) & (slots < table.shape[0])
+    vids = slots[valid].long().cpu()
+    staging = H.pinned_empty((vids.numel(), table.shape[1]), table.dtype)
+    dst = torch.empty((vids.numel(), table.shape[1]), dtype=table.dtype, device=slots.device)
+
+    def library():
+        torch.index_select(table, 0, vids, out=staging)
+        dst.copy_(staging, non_blocking=True)
+
+    uniq = torch.unique(vids).numel()
+    t = timings(case, lambda: H.host_gather_rows(table, slots),
+                lambda: H.host_gather_rows_plain(table, slots), library,
+                link_bound_ms(uniq * rb, slots.numel() * (4 + rb)),
+                iters=10, plain_iters=2)
+    t.update(rows=slots.numel(), valid_rows=vids.numel(), unique_rows=uniq)
+    return link_yardsticks(t, uniq * rb, vids.numel() * rb, link["h2d_GBps"])
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -220,6 +320,19 @@ def check_neighbor_agg(calls):
 
 def quantile(values, q):
     return float(np.quantile(np.asarray(values), q))
+
+
+def link_rates():
+    """Pinned->card and card->pinned rate of a 1 GiB ``copy_``, GB/s."""
+    n = 1 << 30
+    host = H.pinned_empty((n,), torch.uint8).fill_(1)
+    dev = torch.empty((n,), dtype=torch.uint8, device="cuda")
+    h2d = cuda_ms(lambda: dev.copy_(host, non_blocking=True), iters=5, warmup=1)
+    d2h = cuda_ms(lambda: host.copy_(dev, non_blocking=True), iters=5, warmup=1)
+    del host, dev
+    free_pinned()
+    return {"h2d_GBps": n / h2d / 1e6, "d2h_GBps": n / d2h / 1e6, "bytes": n,
+            "h2d_ms": h2d, "d2h_ms": d2h}
 
 
 def device_time(state, batch, step_ms, steps=10):
@@ -247,8 +360,17 @@ def device_time(state, batch, step_ms, steps=10):
             f"{e.count // steps:5d}x  {e.key[:100]}")
 
 
+def coherent(emb):
+    """Every cached row equals its host row (host_embedding.py:24-27)."""
+    torch.cuda.synchronize()
+    cached = emb.cache_map >= 0
+    lines = emb.cache_map[cached].long()
+    return torch.equal(emb.cache_rows[lines].cpu(), emb.host_table[cached.cpu()])
+
+
 def small_parity():
-    """A tiny step on the GPU and on the CPU from the same numpy data."""
+    """A tiny step on the card and on the CPU from the same numpy data, with
+    the embedding in device memory and in the host tier."""
     cfg = wt.SageTrainConfig(n_nodes=400, deg=16, dim=128, hidden=128, num_classes=16,
                              batch=32, fanouts=(10, 15))
     rs = np.random.RandomState(7)
@@ -262,19 +384,27 @@ def small_parity():
     weights = {k: torch.from_numpy(rs.randn(*v.shape).astype(np.float32) / np.sqrt(v.shape[-1]))
                for k, v in ref_model.state_dict().items()}
     batches = [rs.randint(0, cfg.n_nodes, cfg.batch).astype(np.int32) for _ in range(3)]
+    hot = hot_ids_by_degree(row_ptr, HOST_CACHE_RATIO)
 
-    def state(dev):
+    def state(dev, host):
         model = HomoGNN(cfg.dim, cfg.hidden, cfg.num_classes, device=dev)
         model.load_state_dict(weights)
+        if host:
+            emb = HostEmbedding.create(cfg.n_nodes, cfg.dim, optimizer=LazyAdam(),
+                                       cache_ratio=HOST_CACHE_RATIO, device=dev)
+            emb.from_array(table, hot_ids=hot)
+        else:
+            emb = Embedding.create(cfg.n_nodes, cfg.dim, optimizer=LazyAdam(), device=dev)
+            emb.from_array(table)
         return wt.SageTrainState(
             cfg, GraphStructure(torch.from_numpy(row_ptr).to(dev), torch.from_numpy(col).to(dev),
                                 cfg.n_nodes),
-            Embedding.create(cfg.n_nodes, cfg.dim, optimizer=LazyAdam(), device=dev)
-            .from_array(table),
-            model, torch.optim.Adam(model.parameters(), lr=cfg.lr),
+            emb, model, torch.optim.Adam(model.parameters(), lr=cfg.lr),
             torch.from_numpy(labels).to(dev))
 
-    gpu, cpu = state("cuda"), state("cpu")
+    runs = {"hbm_gpu": state("cuda", False), "hbm_cpu": state("cpu", False),
+            "host_gpu": state("cuda", True), "host_cpu": state("cpu", True)}
+    gpu, cpu = runs["hbm_gpu"], runs["hbm_cpu"]
     keys = torch.from_numpy(rs.randint(-2**31, 2**31, 4096).astype(np.int64))
     require(torch.equal(rng.rand_u32(5, keys.cuda(), keys.flip(0).cuda()).cpu(),
                         rng.rand_u32(5, keys, keys.flip(0))), "rng differs between GPU and CPU")
@@ -286,24 +416,275 @@ def small_parity():
             all(torch.equal(a.nbr_idx.cpu(), b.nbr_idx) and torch.equal(a.mask.cpu(), b.mask)
                 for a, b in zip(mg.hops, mc.hops)), "samples differ between GPU and CPU")
     tol = 1e-5  # f32 sums in other orders on the two devices, over three Adam steps
-    losses, touched = [], []
+    losses, touched = {k: [] for k in runs}, []
     for i, centers in enumerate(batches):
         c = torch.from_numpy(centers)
-        lg = float(wt.train_step(gpu, c.cuda(), gpu.labels[c.long().cuda()], seed=i))
-        lc = float(wt.train_step(cpu, c, cpu.labels[c.long()], seed=i))
-        require(abs(lg - lc) <= tol * max(1.0, abs(lc)), f"step {i}: loss {lg} (GPU) vs {lc} (CPU)")
-        losses.append((lg, lc))
+        for name, st in runs.items():
+            cd = c.to(st.labels.device)
+            losses[name].append(float(wt.train_step(st, cd, st.labels[cd.long()], seed=i)))
         ml = cpu.graph.multilayer_sample(c, cfg.fanouts, seed=i)
         touched.append(ml.unique_gids[ml.unique_mask])
     rows = torch.unique(torch.cat(touched)).long()
-    err = max_err(gpu.embedding.table.cpu()[rows], cpu.embedding.table[rows])
-    require(err <= tol, f"touched rows differ between GPU and CPU: {err}")
     untouched = torch.ones(cfg.n_nodes, dtype=torch.bool)
     untouched[rows] = False
-    require(torch.equal(gpu.embedding.table.cpu()[untouched], torch.from_numpy(table)[untouched]),
-            "untouched rows changed on the GPU")
-    log(f"[parity] 3 tiny steps, losses (GPU, CPU) {losses}, touched rows {rows.numel()}, "
-        f"max row diff {err:.3g} (tol {tol})")
+    tables = {"hbm_gpu": gpu.embedding.table.cpu(), "hbm_cpu": cpu.embedding.table,
+              "host_gpu": torch.from_numpy(runs["host_gpu"].embedding.to_array()),
+              "host_cpu": runs["host_cpu"].embedding.host_table}
+    errs = {}
+    for a, b in (("hbm_gpu", "hbm_cpu"), ("host_gpu", "host_cpu"), ("host_gpu", "hbm_gpu")):
+        for la, lb in zip(losses[a], losses[b]):
+            require(abs(la - lb) <= tol * max(1.0, abs(lb)), f"loss {la} ({a}) vs {lb} ({b})")
+        errs[f"{a}/{b}"] = max_err(tables[a][rows], tables[b][rows])
+        require(errs[f"{a}/{b}"] <= tol, f"touched rows differ, {a} vs {b}: {errs}")
+    for name in ("hbm_gpu", "host_gpu"):
+        require(torch.equal(tables[name][untouched], torch.from_numpy(table)[untouched]),
+                f"untouched rows changed ({name})")
+    require(coherent(runs["host_gpu"].embedding), "host tier: a cached row differs from the host")
+    log(f"[parity] 3 tiny steps, losses {json.dumps(losses)}, touched rows {rows.numel()}, "
+        f"max row diffs {errs} (tol {tol}); host tier: {len(hot)} rows cached, coherent")
+
+
+def train_timed(state, batch, steps, seed0):
+    """``steps`` timed steps: per-step and per-stage CUDA-event ms, host
+    clock ms, losses."""
+    names = ("start",) + STAGES
+    step_ms, host_ms, losses = [], [], []
+    stage_ms = {s: [] for s in STAGES}
+    for i in range(steps):
+        c, y = batch()
+        torch.cuda.synchronize()
+        events = {}
+
+        def mark(stage):
+            events[stage] = torch.cuda.Event(enable_timing=True)
+            events[stage].record()
+
+        t0 = time.perf_counter()
+        mark("start")
+        loss = wt.train_step(state, c, y, seed=seed0 + i, mark=mark)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(events["start"].elapsed_time(events[STAGES[-1]]))
+        for a, b in zip(names, names[1:]):
+            stage_ms[b].append(events[a].elapsed_time(events[b]))
+        losses.append(float(loss))
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    return step_ms, host_ms, stage_ms, losses, c
+
+
+def report_steps(tag, steps, step_ms, host_ms, stage_ms, losses, peak, launches):
+    log(f"[{tag}] {steps} steps at full width: first losses {losses[:5]}, last {losses[-5:]}")
+    log(f"[{tag}] step ms (CUDA events) median {statistics.median(step_ms)}, "
+        f"p90 {quantile(step_ms, 0.9)}, min {min(step_ms)}, max {max(step_ms)}; "
+        f"host clock median {statistics.median(host_ms)}; "
+        f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB); launches {launches}")
+    log(f"[{tag}] stage ms medians (CUDA events): "
+        + json.dumps({s: statistics.median(v) for s, v in stage_ms.items()}))
+
+
+def host_gather_phase(link):
+    """The host tier's gather at bench_host_gather's shapes (empty cache)."""
+    n, dim, batch = 4_000_000, 256, 1 << 19
+    t0 = time.perf_counter()
+    emb = HostEmbedding.create(n, dim, cache_ratio=1e-9)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    emb.init(gen)  # random rows, so bit-equality says something
+    torch.cuda.synchronize()
+    asked, held = pinned_bytes([emb.host_table])
+    log(f"[host_gather] [{n}, {dim}] f32 pinned table in {time.perf_counter() - t0:.2f} s: "
+        f"{asked} bytes asked; the caching host allocator holds {held} pinned bytes")
+    span = int(batch * 1.25)
+    base = int(torch.randint(0, n - span, (1,), generator=gen, device="cuda"))
+    regimes = {
+        "uniform": torch.randint(0, n, (batch,), generator=gen, device="cuda", dtype=torch.int32),
+        "clustered": base + torch.randint(0, span, (batch,), generator=gen, device="cuda",
+                                          dtype=torch.int32),
+    }
+    out, errs = [], []
+    for regime, ids in regimes.items():
+        calls = []
+        torch.cuda.synchronize()
+        reset_launches()
+        with capture(host_mod, "host_gather_rows", calls):
+            rows = emb.gather(ids)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        require(launches.get("host_gather", 0) > 0 and launches.get("row_gather", 0) > 0,
+                f"host gather ({regime}) did not launch kernels E and A: {launches}")
+        table, slots = calls[0]
+        ref = H.host_gather_rows_plain(table, slots)
+        err = max_err(H.host_gather_rows(table, slots), ref)
+        require(err == 0.0 and torch.equal(rows, ref),
+                f"host_gather ({regime}) differs from its plain version: {err}")
+        errs.append({"case": f"bench {regime}", "max_abs_err": err, "tol": 0.0})
+        t = time_host_gather(f"bench {regime} [{batch}] of [{n}, {dim}]", table, slots, link)
+        t.update(regime=regime, launches=launches, gather_ms=cuda_ms(lambda: emb.gather(ids), 10))
+        rb = dim * 4
+        if regime == "clustered":  # row 10's yardstick: the span's copy_, then a take
+            lo, hi = int(slots.min()), int(slots.max())
+            span_dev = torch.empty((hi - lo + 1, dim), device="cuda")
+            rel = (slots - lo).long()
+            t["library_cpu_ms"] = t["library_ms"]
+            t["library_ms"] = cuda_ms(lambda: torch.index_select(
+                span_dev.copy_(emb.host_table[lo:hi + 1], non_blocking=True), 0, rel),
+                iters=5, warmup=1)
+            t.update(span_rows=hi - lo + 1, library="span copy_ + index_select",
+                     library_cpu="CPU index_select + copy")
+            del span_dev
+        else:
+            t["library"] = "CPU index_select + copy"
+        log(f"[host_gather] {regime}: E {t['ms']} ms for {batch} rows of {rb} B, "
+            f"{t['delivered_GBps']} GB/s delivered = {t['peak_share']} of the link's "
+            f"{LINK_BYTES_PER_S / 1e9} GB/s peak, {t['copy_share']} of its {link['h2d_GBps']} "
+            f"GB/s copy_; whole gather {t['gather_ms']} ms; bound {t['bound_ms']} ms (at the "
+            f"copy_ rate {t['copy_ms']} ms); plain {t['plain_ms']} ms; library {t['library_ms']} ms"
+            + (f" (CPU route {t['library_cpu_ms']} ms)" if "library_cpu_ms" in t else "")
+            + f"; {t['unique_rows']} unique rows; launches {launches}")
+        out.append(t)
+        del calls, table, slots, rows, ref
+    del emb, regimes
+    log(f"[host_gather] table freed; host cache emptied: {free_pinned()}")
+    return out, errs
+
+
+def check_host_steps(emb, calls_e, calls_f, snap, sample, link):
+    """Every E and F call of one captured host-tier step against its plain
+    version; F by its written rows and a sample of untouched rows."""
+    errs, times = {"E": [], "F": []}, {"E": [], "F": []}
+    torch.cuda.synchronize()
+    for i, (table, slots) in enumerate(calls_e):
+        err = max_err(H.host_gather_rows(table, slots), H.host_gather_rows_plain(table, slots))
+        require(err == 0.0, f"host_gather step call{i} differs from its plain version: {err}")
+        regime = "step gather (misses)" if i == 0 else "step apply (sorted unique slots)"
+        errs["E"].append({"case": f"step call{i}", "max_abs_err": err, "tol": 0.0})
+        t = time_host_gather(f"step call{i} [{slots.numel()}] of {list(table.shape)}",
+                             table, slots, link)
+        t["regime"] = regime
+        times["E"].append(t)
+    names = {id(emb.host_table): "table", **{id(t): s for s, t in emb.host_slots.items()}}
+    for i, (table, slots, rows) in enumerate(calls_f):
+        n, rb = table.shape[0], table.shape[1] * table.element_size()
+        valid = (slots >= 0) & (slots < n)
+        vids = slots[valid].long().cpu()
+        written = table[vids]
+        err = max_err(written, rows[valid].cpu())
+        require(err == 0.0, f"host_scatter step call{i}: written rows differ: {err}")
+        name = names[id(table)]
+        keep = ~torch.isin(sample, vids)
+        require(torch.equal(table[sample[keep]], snap[name][keep]),
+                f"host_scatter step call{i}: an untouched row of {name} changed")
+        errs["F"].append({"case": f"step call{i} ({name})", "max_abs_err": err, "tol": 0.0,
+                          "untouched_rows_checked": int(keep.sum())})
+        vrows = rows[valid]
+        staging = H.pinned_empty(tuple(vrows.shape), vrows.dtype)
+
+        def library():  # a D2H copy of the valid rows, then a CPU index_copy_
+            staging.copy_(vrows)
+            table.index_copy_(0, vids, staging)
+
+        t = timings(f"step call{i} [{slots.numel()}] into [{n}, {table.shape[1]}] ({name})",
+                    lambda: H.host_scatter_rows(table, slots, rows),
+                    lambda: H.host_scatter_rows_plain(table, slots, rows), library,
+                    link_bound_ms(vids.numel() * rb, slots.numel() * 4 + vids.numel() * rb),
+                    iters=10, plain_iters=2)
+        t.update(valid_rows=vids.numel(), library="D2H copy + CPU index_copy_")
+        times["F"].append(link_yardsticks(t, vids.numel() * rb, vids.numel() * rb,
+                                          link["d2h_GBps"]))
+    return errs, times
+
+
+def host_tier_phase(cfg, link):
+    """The sampled GraphSAGE step with the table, m and v in pinned host
+    memory (HostEmbedding, cache_ratio HOST_CACHE_RATIO)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    state = wt.build_synthetic(cfg, device=dev, seed=0, host_cache_ratio=HOST_CACHE_RATIO)
+    torch.cuda.synchronize()
+    emb = state.embedding
+    host_tensors = [emb.host_table, *emb.host_slots.values()]
+    asked, held = pinned_bytes(host_tensors)
+    log(f"[host_tier] state built in {time.perf_counter() - t0:.2f} s: {emb.hot_cap} cache "
+        f"lines ({emb.cache_rows.nbytes} bytes on the card), pinned {asked} bytes asked; the "
+        f"caching host allocator holds {held} pinned bytes")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def batch():
+        c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        return c, state.labels[c.long()]
+
+    # a sample of rows of the table, m and v, to show F leaves untouched rows alone
+    sample = torch.randperm(cfg.n_nodes, generator=torch.Generator().manual_seed(6))[:65536]
+    snap = {"table": emb.host_table[sample]}
+    snap.update({s: t[sample] for s, t in emb.host_slots.items()})
+    calls = {k: [] for k in "ABCDEF"}
+    with capture(host_mod, "gather_rows", calls["A"]), \
+            capture(host_mod, "scatter_rows", calls["B"]), \
+            capture(sampling_mod, "sample_cols", calls["C"]), \
+            capture(S, "neighbor_reduce", calls["D"]), \
+            capture(host_mod, "host_gather_rows", calls["E"]), \
+            capture(host_mod, "host_scatter_rows", calls["F"]):
+        c, y = batch()
+        loss0 = float(wt.train_step(state, c, y, seed=0))
+    require(np.isfinite(loss0), f"first host-tier step loss {loss0}")
+    per_step = {k: len(v) for k, v in calls.items()}
+    # E: the gather's misses and the apply's table, m and v reads; F: three
+    # write-backs; A: the cache hits; B: the cached lines' rewrite
+    require(per_step == {"A": 1, "B": 1, "C": 2, "D": 2, "E": 4, "F": 3},
+            f"unexpected host-tier calls per step {per_step}")
+    ml = state.graph.multilayer_sample(c, cfg.fanouts, seed=0)
+    ids = ml.unique_gids[ml.unique_mask]
+    hit = emb.cache_hit_fraction(ids)
+    misses = int(((calls["E"][0][1] >= 0)).sum())
+    log(f"[host_tier] captured step: calls {per_step}, loss {loss0:.5f}, {ids.numel()} unique "
+        f"rows, cache hit fraction {hit}, {misses} rows fetched from the host")
+    errs, times = check_host_steps(emb, calls["E"], calls["F"], snap, sample, link)
+    # A on the cache hits' lines of cache_rows, B on the rewrite of the
+    # cached lines (the new rows of the step's hits, -1 for the rest)
+    for key, check in (("A", check_gather), ("B", check_scatter)):
+        errs[key], times[key] = check(calls[key])
+        for e in errs[key] + times[key]:
+            e["case"] = "host tier " + e["case"]
+    require(coherent(emb), "host tier: a cached row differs from its host row")
+    for key, name in (("E", "host_gather"), ("F", "host_scatter"), ("A", "row_gather"),
+                      ("B", "row_scatter")):
+        log(f"[check] {name} (host tier): " + json.dumps(errs[key]))
+    del calls, snap
+
+    float(wt.train_step(state, *batch(), seed=1))  # one more warm-up step
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, host_ms, stage_ms, losses, c = train_timed(state, batch, HOST_STEPS, 2)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    require(all(n > 0 for n in launches.values()), f"a kernel of the host tier never ran: {launches}")
+    require(bool(torch.isfinite(emb.gather(c)).all()), "non-finite host-tier rows")
+    require(coherent(emb), "host tier: the cache lost coherence over the timed steps")
+    report_steps("host_tier", HOST_STEPS, step_ms, host_ms, stage_ms, losses, peak, launches)
+    log(f"[host_tier] pinned {asked} bytes asked ({held} held); cache hit fraction {hit}; "
+        f"link h2d {link['h2d_GBps']} GB/s, d2h {link['d2h_GBps']} GB/s")
+    device_time(state, batch, statistics.median(step_ms), steps=5)
+    del state, emb, host_tensors
+    free_pinned()
+    return errs, times, launches
+
+
+def kernel_entry(kern, launches, errs, times, **extra):
+    """One kernel's line: times per step (the sum over the step's calls);
+    for E and F also the link bytes' time at the measured ``copy_`` rate."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms") + (
+        ("copy_ms",) if all("copy_ms" in t for t in times) else ())
+    total = {k: sum(t[k] for t in times) for k in keys}
+    return {
+        "name": kern.name, "route": "cuda", "source": f"wholegraph_tpu_torch/csrc/{kern.source}",
+        "replaces": kern.replaces, "launches": launches[kern.name],
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "tol": max(e["tol"] for e in errs), **total,
+        "bound_by": "operations" if any(t["bound_by"] == "operations" for t in times) else "bytes",
+        "calls": times, "checks": errs, **extra,
+    }
 
 
 def main():
@@ -317,7 +698,11 @@ def main():
 
     t0 = time.perf_counter()
     secs = kernels.build_all()
-    log(f"[build] {len(secs)} kernels in {time.perf_counter() - t0:.2f} s: {secs}")
+    log(f"[build] {len(secs)} sources in {time.perf_counter() - t0:.2f} s: {secs}")
+
+    link = link_rates()
+    log(f"[link] pinned->card {link['h2d_GBps']} GB/s, card->pinned {link['d2h_GBps']} GB/s "
+        f"(1 GiB copy_, CUDA events) on {smi}")
 
     cfg = wt.SageTrainConfig()
     t0 = time.perf_counter()
@@ -353,67 +738,39 @@ def main():
                           ("C", G.SAMPLE_COLS, check_sample_cols),
                           ("D", S.NEIGHBOR_AGG, check_neighbor_agg)):
         require(calls[key], f"kernel {kern.name} was not called by the main path")
-        checks[kern.name] = (kern, fn(calls[key]))
-        log(f"[check] {kern.name}: {json.dumps(checks[kern.name][1][0])}")
+        checks[key] = (kern, fn(calls[key]))
+        log(f"[check] {kern.name}: {json.dumps(checks[key][1][0])}")
     del calls
 
     small_parity()
 
-    # the main path: reset the counters, train, read them
+    # the device-memory path: reset the counters, train, read them
     c, y = batch()
     float(wt.train_step(state, c, y, seed=1))  # one more warm-up step
-    for kern, _ in checks.values():
-        kern.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    names = ("start",) + STAGES
-    step_ms, host_ms, losses = [], [], []
-    stage_ms = {s: [] for s in STAGES}
-    for i in range(STEPS):
-        c, y = batch()
-        torch.cuda.synchronize()
-        events = {}
-
-        def mark(stage):
-            events[stage] = torch.cuda.Event(enable_timing=True)
-            events[stage].record()
-
-        t0 = time.perf_counter()
-        mark("start")
-        loss = wt.train_step(state, c, y, seed=2 + i, mark=mark)
-        torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        step_ms.append(events["start"].elapsed_time(events[STAGES[-1]]))
-        for a, b in zip(names, names[1:]):
-            stage_ms[b].append(events[a].elapsed_time(events[b]))
-        losses.append(float(loss))
-    launches = {kern.name: kern.launches for kern, _ in checks.values()}
+    step_ms, host_ms, stage_ms, losses, c = train_timed(state, batch, STEPS, 2)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    require(all(n > 0 for n in launches.values()), f"a kernel of the path never ran: {launches}")
+    require(all(launches[k.name] > 0 for k, _ in checks.values()),
+            f"a kernel of the path never ran: {launches}")
     require(bool(torch.isfinite(state.embedding.table[c.long()]).all()), "non-finite table rows")
-
-    log(f"[train] {STEPS} steps at full width: first losses {losses[:5]}, last {losses[-5:]}")
-    log(f"[train] step ms (CUDA events) median {statistics.median(step_ms)}, "
-        f"p90 {quantile(step_ms, 0.9)}, min {min(step_ms)}, max {max(step_ms)}; "
-        f"host clock median {statistics.median(host_ms)}; "
-        f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB); launches {launches}")
-    log("[train] stage ms medians (CUDA events): "
-        + json.dumps({s: statistics.median(v) for s, v in stage_ms.items()}))
+    report_steps("train", STEPS, step_ms, host_ms, stage_ms, losses, peak, launches)
     device_time(state, batch, statistics.median(step_ms))
+    del state
+    torch.cuda.empty_cache()
 
-    # times are per step: the sum over the step's calls, listed in "calls"
-    out = []
-    for name, (kern, (errs, times)) in checks.items():
-        total = {k: sum(t[k] for t in times) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        out.append({
-            "name": name, "route": "cuda", "source": f"wholegraph_tpu_torch/csrc/{kern.source}",
-            "replaces": kern.replaces, "launches": launches[name],
-            "max_abs_err": max(e["max_abs_err"] for e in errs),
-            "tol": max(e["tol"] for e in errs), **total,
-            "bound_by": "operations" if any(t["bound_by"] == "operations" for t in times)
-            else "bytes",
-            "steps": STEPS, "calls": times, "checks": errs,
-        })
+    bench, bench_errs = host_gather_phase(link)
+    host_errs, host_times, host_launches = host_tier_phase(cfg, link)
+
+    out = [kernel_entry(kern, launches, errs + host_errs.get(key, []), times, steps=STEPS,
+                        launches_host_tier=host_launches[kern.name],
+                        host_tier_calls=host_times.get(key, []))
+           for key, (kern, (errs, times)) in checks.items()]
+    out.append(kernel_entry(H.HOST_GATHER, host_launches, host_errs["E"] + bench_errs,
+                            host_times["E"], steps=HOST_STEPS, bench=bench, link=link))
+    out.append(kernel_entry(H.HOST_SCATTER, host_launches, host_errs["F"], host_times["F"],
+                            steps=HOST_STEPS, link=link))
     log(json.dumps({"kernels": out}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,12 @@
-"""Kernels A-D on the card against their plain PyTorch versions, and one
-tiny training step on the card against the same step on the CPU.
+"""Kernels A-F on the card against their plain PyTorch versions, one tiny
+training step on the card against the same step on the CPU, and the same
+for the host-memory tier (kernels E and F on pinned host tables).
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so without a card every test
 here skips. On a machine with an H100 run them with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
 
-Tolerances: A, B and C move bits and must be exact. D sums up to K f32
+Tolerances: A, B, C, E and F move bits and must be exact. D sums up to K f32
 values in another order than its plain version: K f32 ulps of the largest
 output, plus one bf16 ulp when the output is rounded to bf16."""
 
@@ -14,11 +15,14 @@ import pytest
 import torch
 
 import wholegraph_tpu_torch as wt
-from wholegraph_tpu_torch.embedding import Embedding, LazyAdam
+from wholegraph_tpu_torch import kernels
+from wholegraph_tpu_torch.embedding import Embedding, HostEmbedding, LazyAdam
 from wholegraph_tpu_torch.graph import GraphStructure
 from wholegraph_tpu_torch.models import HomoGNN
 from wholegraph_tpu_torch.ops import gather_kernels as G
+from wholegraph_tpu_torch.ops import host_kernels as H
 from wholegraph_tpu_torch.ops import spmm_kernels as S
+from wholegraph_tpu_torch.utils.error import CudaError
 
 pytestmark = pytest.mark.cuda
 
@@ -111,7 +115,10 @@ def test_neighbor_reduce_grad_matches_cpu(dev):
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
 
 
-def test_train_step_on_card_matches_cpu(dev):
+def _tiny_states():
+    """``state(device, host_ratio=None)``: a tiny training state from the
+    same numpy data and weights on any device; ``host_ratio`` puts the
+    embedding in the host tier."""
     cfg = wt.SageTrainConfig(n_nodes=300, deg=8, dim=32, hidden=32, num_classes=4, batch=16,
                              fanouts=(3, 4))
     rs = np.random.RandomState(0)
@@ -122,20 +129,146 @@ def test_train_step_on_card_matches_cpu(dev):
     labels = torch.from_numpy(rs.randint(0, cfg.num_classes, cfg.n_nodes).astype(np.int32))
     weights = HomoGNN(cfg.dim, cfg.hidden, cfg.num_classes, device="cpu").state_dict()
 
-    def state(d):
+    def state(d, host_ratio=None):
         model = HomoGNN(cfg.dim, cfg.hidden, cfg.num_classes, device=d)
         model.load_state_dict(weights)
+        if host_ratio is None:
+            emb = Embedding.create(cfg.n_nodes, cfg.dim, optimizer=LazyAdam(), device=d)
+            emb.from_array(table)
+        else:
+            emb = HostEmbedding.create(cfg.n_nodes, cfg.dim, optimizer=LazyAdam(),
+                                       cache_ratio=host_ratio, device=d)
+            emb.from_array(table, hot_ids=wt.embedding.hot_ids_by_degree(row_ptr, host_ratio))
         return wt.SageTrainState(
-            cfg, GraphStructure(row_ptr.to(d), col.to(d), cfg.n_nodes),
-            Embedding.create(cfg.n_nodes, cfg.dim, optimizer=LazyAdam(), device=d)
-            .from_array(table),
+            cfg, GraphStructure(row_ptr.to(d), col.to(d), cfg.n_nodes), emb,
             model, torch.optim.Adam(model.parameters(), lr=cfg.lr), labels.to(d))
 
+    batches = [torch.from_numpy(rs.randint(0, cfg.n_nodes, cfg.batch).astype(np.int32))
+               for _ in range(3)]
+    return state, batches
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    state, batches = _tiny_states()
     on_card, on_cpu = state(dev), state("cpu")
-    for i in range(2):
-        c = torch.from_numpy(rs.randint(0, cfg.n_nodes, cfg.batch).astype(np.int32))
+    for i, c in enumerate(batches[:2]):
         a = wt.train_step(on_card, c.to(dev), on_card.labels[c.long().to(dev)], seed=i)
         b = wt.train_step(on_cpu, c, on_cpu.labels[c.long()], seed=i)
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(on_card.embedding.table.cpu(), on_cpu.embedding.table,
                                rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# kernels E and F: rows of pinned host tables
+# ---------------------------------------------------------------------------
+
+
+def _pinned(t):
+    p = H.pinned_empty(t.shape, t.dtype)
+    p.copy_(t)
+    assert p.is_pinned() and p.device.type == "cpu"
+    return p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 100, 3])  # 16-, 8- and 4-byte vectors in f32
+@pytest.mark.parametrize("slot_dtype", [torch.int32, torch.int64])
+def test_host_gather_matches_plain(dev, dtype, D, slot_dtype):
+    table = _pinned(torch.randn(500, D, generator=_gen(D)).to(dtype))
+    slots = torch.randint(-5, 505, (3000,), generator=_gen(13), dtype=slot_dtype)
+    before = H.HOST_GATHER.launches
+    out = H.host_gather_rows(table, slots.to(dev))
+    assert H.HOST_GATHER.launches == before + 1
+    assert out.device.type == "cuda" and out.dtype == dtype
+    ref = H.host_gather_rows_plain(table, slots)
+    assert torch.equal(out.cpu(), ref)
+    assert not ref[(slots < 0) | (slots >= 500)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 100, 3])
+def test_host_scatter_matches_plain(dev, dtype, D):
+    init = torch.randn(500, D, generator=_gen(D)).to(dtype)
+    table = _pinned(init)
+    slots = torch.randperm(500, generator=_gen(14))[:300].to(torch.int32)
+    slots[::7] = -1
+    slots[1] = 505
+    rows = torch.randn(300, D, generator=_gen(15)).to(dtype)
+    before = H.HOST_SCATTER.launches
+    assert H.host_scatter_rows(table, slots.to(dev), rows.to(dev)) is table
+    assert H.HOST_SCATTER.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(table, H.host_scatter_rows_plain(init.clone(), slots, rows))
+
+
+def test_host_rows_of_a_view_at_an_offset(dev):
+    """The entry points resolve the allocation's base and add the view's
+    byte offset: a view 100 rows into a pinned table reads and writes its
+    own rows and leaves the rows before it alone."""
+    full = _pinned(torch.randn(600, 64, generator=_gen(16)))
+    view = full[100:]
+    head = full[:100].clone()
+    slots = torch.randint(0, 500, (1000,), generator=_gen(17), dtype=torch.int32)
+    assert torch.equal(H.host_gather_rows(view, slots.to(dev)).cpu(),
+                       H.host_gather_rows_plain(view, slots))
+    wslots = torch.randperm(500, generator=_gen(18))[:200]
+    rows = torch.randn(200, 64, generator=_gen(19))
+    H.host_scatter_rows(view, wslots.to(dev), rows.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(view[wslots], rows) and torch.equal(full[:100], head)
+
+
+def test_host_rows_empty_batch(dev):
+    table = _pinned(torch.randn(50, 8, generator=_gen(20)))
+    before = (H.HOST_GATHER.launches, H.HOST_SCATTER.launches)
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    out = H.host_gather_rows(table, empty)
+    assert out.shape == (0, 8) and out.device.type == "cuda"
+    H.host_scatter_rows(table, empty, torch.zeros(0, 8, device=dev))
+    assert (H.HOST_GATHER.launches, H.HOST_SCATTER.launches) == before
+
+
+def test_host_rows_refuse_memory_that_is_not_pinned(dev):
+    table = torch.randn(50, 8, generator=_gen(21))  # pageable
+    slots = torch.arange(4, dtype=torch.int32, device=dev)
+    with pytest.raises(CudaError, match="not in pinned"):
+        H.host_gather_rows(table, slots)
+    with pytest.raises(CudaError, match="not in pinned"):
+        H.host_scatter_rows(table, slots, torch.zeros(4, 8, device=dev))
+    # the C entry itself refuses a pointer CUDA has not mapped, and launches
+    # nothing ...
+    out = torch.zeros(4, 8, device=dev)
+    before = H.HOST_GATHER.launches
+    with pytest.raises(CudaError, match="host_gather"):
+        H.HOST_GATHER(table.data_ptr(), 0, slots.data_ptr(), 0, out.data_ptr(), 50, 4, 32, 16,
+                      kernels.cuda_stream(dev))
+    assert H.HOST_GATHER.launches == before
+    # ... and the refusal does not linger into the next launch
+    assert torch.equal(H.host_gather_rows(_pinned(table), slots).cpu(), table[:4])
+
+
+def test_host_tier_steps_on_card_match_cpu_and_hbm(dev):
+    """Three tiny steps with the host tier on the card, on the CPU, and with
+    the device-memory embedding on the card; the cache stays coherent with
+    the host over the steps (each step's E reads see the last one's F
+    writes)."""
+    state, batches = _tiny_states()
+    on_card, on_cpu, hbm = state(dev, 0.25), state("cpu", 0.25), state(dev)
+    launches = (H.HOST_GATHER.launches, H.HOST_SCATTER.launches)
+    for i, c in enumerate(batches):
+        a = wt.train_step(on_card, c.to(dev), on_card.labels[c.long().to(dev)], seed=i)
+        b = wt.train_step(on_cpu, c, on_cpu.labels[c.long()], seed=i)
+        h = wt.train_step(hbm, c.to(dev), hbm.labels[c.long().to(dev)], seed=i)
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(a, h, rtol=1e-5, atol=1e-5)
+    # per step: E once in the gather and 3x in the apply, F 3x
+    assert H.HOST_GATHER.launches - launches[0] == 12
+    assert H.HOST_SCATTER.launches - launches[1] == 9
+    emb = on_card.embedding
+    torch.testing.assert_close(torch.from_numpy(emb.to_array()), on_cpu.embedding.host_table,
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(emb.host_table.to(dev), hbm.embedding.table, rtol=1e-5, atol=1e-5)
+    cached = emb.cache_map >= 0
+    assert torch.equal(emb.cache_rows[emb.cache_map[cached].long()].cpu(),
+                       emb.host_table[cached.cpu()])

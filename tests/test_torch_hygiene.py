@@ -12,10 +12,12 @@ import torch
 
 import wholegraph_tpu_torch as wt
 from wholegraph_tpu_torch import kernels
-from wholegraph_tpu_torch.embedding import Embedding
+from wholegraph_tpu_torch.embedding import Embedding, HostEmbedding
 from wholegraph_tpu_torch.graph import GraphStructure
 from wholegraph_tpu_torch.models import HomoGNN
+from wholegraph_tpu_torch.ops import KERNELS
 from wholegraph_tpu_torch.ops import gather_kernels as G
+from wholegraph_tpu_torch.ops import host_kernels as H
 from wholegraph_tpu_torch.ops import spmm_kernels as S
 from wholegraph_tpu_torch.utils.error import CudaError
 
@@ -60,13 +62,17 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["embedding", "graph", "model", "build_synthetic"])
+@pytest.mark.parametrize("entry", ["embedding", "graph", "model", "build_synthetic",
+                                   "host_embedding", "build_synthetic_host_tier"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     calls = {
         "embedding": lambda: Embedding.create(10, 4),
         "graph": lambda: GraphStructure.from_coo(np.array([0, 1]), np.array([1, 0]), 2),
         "model": lambda: HomoGNN(8, 8, 2),
         "build_synthetic": lambda: wt.build_synthetic(wt.SageTrainConfig(n_nodes=10)),
+        "host_embedding": lambda: HostEmbedding.create(10, 4),
+        "build_synthetic_host_tier": lambda: wt.build_synthetic(wt.SageTrainConfig(n_nodes=10),
+                                                                host_cache_ratio=0.25),
     }
     with pytest.raises(CudaError, match="CUDA is not available"):
         calls[entry]()
@@ -77,15 +83,16 @@ def test_kernels_import_and_cpu_path_build_nothing(monkeypatch):
         raise AssertionError("a CPU run must not start nvcc")
 
     monkeypatch.setattr(subprocess, "Popen", no_subprocess)
-    for k in (G.ROW_GATHER, G.ROW_SCATTER, G.SAMPLE_COLS, S.NEIGHBOR_AGG):
+    for k in KERNELS:
         monkeypatch.setattr(k, "launches", 0)
     cfg = wt.SageTrainConfig(n_nodes=50, dim=8, hidden=8, num_classes=3, batch=4, fanouts=(2, 2))
-    state = wt.build_synthetic(cfg, device="cpu", seed=0)
     c = torch.arange(4, dtype=torch.int32)
-    assert np.isfinite(float(wt.train_step(state, c, state.labels[c.long()], seed=0)))
+    for ratio in (None, 0.5):  # device-memory and host-tier embedding (kernels E and F)
+        state = wt.build_synthetic(cfg, device="cpu", seed=0, host_cache_ratio=ratio)
+        assert np.isfinite(float(wt.train_step(state, c, state.labels[c.long()], seed=0)))
+    assert isinstance(state.embedding, HostEmbedding)
     assert not kernels._libs
-    assert all(k.launches == 0 for k in (G.ROW_GATHER, G.ROW_SCATTER, G.SAMPLE_COLS,
-                                          S.NEIGHBOR_AGG))
+    assert all(k.launches == 0 for k in KERNELS)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -94,7 +101,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(CudaError, match="nvcc not found"):
         kernels.build_all()
     assert not os.listdir(tmp_path)
-    assert len(kernels.sources()) == 4
+    # every source carries at least one Kernel, and every Kernel a source
+    assert sorted({os.path.join(kernels.CSRC, k.source) for k in KERNELS}) == kernels.sources()
+    assert len({k.entry for k in KERNELS}) == len(KERNELS)
 
 
 def test_wrappers_do_not_fall_back_off_the_cpu():
@@ -108,6 +117,10 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(CudaError):
         S.neighbor_reduce(meta, torch.zeros(2, 3, dtype=torch.int32, device="meta"),
                           torch.ones(2, 3, dtype=torch.bool, device="meta"), True)
+    with pytest.raises(CudaError):
+        H.host_gather_rows(torch.zeros(16, 8), ids)  # a host table with slots off the CPU
+    with pytest.raises(CudaError):
+        H.host_scatter_rows(torch.zeros(16, 8), ids, torch.zeros(4, 8, device="meta"))
 
 
 def test_library_path_tracks_the_source(tmp_path, monkeypatch):
@@ -118,3 +131,17 @@ def test_library_path_tracks_the_source(tmp_path, monkeypatch):
     src.write_text("// b")
     p2 = kernels.library_path(str(src))
     assert p1 != p2 and os.path.basename(p1).startswith("libk-")
+
+
+def test_library_path_tracks_the_headers(tmp_path):
+    """A header beside the sources (kernel B's body, shared with kernel F)
+    is part of every library's hash."""
+    src, hdr = tmp_path / "k.cu", tmp_path / "body.cuh"
+    src.write_text('#include "body.cuh"')
+    hdr.write_text("// a")
+    p1 = kernels.library_path(str(src))
+    hdr.write_text("// b")
+    assert kernels.library_path(str(src)) != p1
+    assert os.path.exists(os.path.join(kernels.CSRC, "row_scatter.cuh"))
+    assert all("#include \"row_scatter.cuh\"" in open(os.path.join(kernels.CSRC, s)).read()
+               for s in (G.ROW_SCATTER.source, H.HOST_SCATTER.source))

@@ -7,7 +7,10 @@ mirror the JAX package's, so each counterpart is easy to find. Entry points
 take ``device="cuda"`` by default and raise when CUDA is missing; an
 explicit ``device="cpu"`` runs the kernels' plain PyTorch versions.
 
-The first slice is the sampled GraphSAGE training step (:mod:`.train`).
+The first slice is the sampled GraphSAGE training step (:mod:`.train`); the
+second puts its embedding in the host-memory tier
+(:class:`.embedding.HostEmbedding`: the table and optimizer state in pinned
+host memory behind a cache of hot rows on the card).
 """
 
 from . import embedding, graph, kernels, models, ops, utils

@@ -6,8 +6,9 @@ interface, under ``wholegraph_tpu_torch/_build/`` (listed in .gitignore),
 and loaded with :mod:`ctypes`. Nothing is built or loaded when this module
 is imported: the first launch of any kernel builds every source at once,
 one ``nvcc`` process per source, all started together. A library's file
-name carries a hash of its source and flags, so an edited source is
-rebuilt and a current one is reused.
+name carries a hash of its source, the headers (``*.cuh``) beside it and
+the flags, so an edited source or header is rebuilt and a current one is
+reused.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :class:`Kernel` raises when that is not
@@ -63,9 +64,14 @@ def sources() -> List[str]:
 
 def library_path(source: str) -> str:
     """Built library of ``source``: named by the source's stem and a hash of
-    its text and the compiler flags."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    its text, the text of the headers (``*.cuh``) beside it, and the compiler
+    flags."""
+    h = hashlib.sha256()
+    for path in [source, *sorted(glob.glob(os.path.join(os.path.dirname(source), "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
 

@@ -1,12 +1,19 @@
 from . import rng
 from .gather import local_add, local_take, local_write
-from .gather_kernels import gather_rows, sample_cols, scatter_rows
+from .gather_kernels import (ROW_GATHER, ROW_SCATTER, SAMPLE_COLS, gather_rows, sample_cols,
+                             scatter_rows)
 from .graph_ops import append_unique
+from .host_kernels import (HOST_GATHER, HOST_SCATTER, host_gather_rows, host_scatter_rows,
+                           pinned_empty)
 from .sampling import SampleResult, csr_sample_neighbors
 from .spmm import padded_gather_neighbors, padded_reduce, padded_softmax
-from .spmm_kernels import NeighborReduce, neighbor_reduce
+from .spmm_kernels import NEIGHBOR_AGG, NeighborReduce, neighbor_reduce
+
+# every hand-written kernel of the port, one per C entry point
+KERNELS = (ROW_GATHER, ROW_SCATTER, SAMPLE_COLS, NEIGHBOR_AGG, HOST_GATHER, HOST_SCATTER)
 
 __all__ = [
+    "KERNELS",
     "rng",
     "local_add",
     "local_take",
@@ -15,6 +22,9 @@ __all__ = [
     "sample_cols",
     "scatter_rows",
     "append_unique",
+    "host_gather_rows",
+    "host_scatter_rows",
+    "pinned_empty",
     "SampleResult",
     "csr_sample_neighbors",
     "padded_gather_neighbors",

@@ -7,17 +7,23 @@
 ids (kernel A), the 2-layer SAGE forward (kernel D per layer) and backward,
 dense Adam, and the sparse LazyAdam apply on the touched rows (kernel A
 reads, kernel B writes).
+
+With ``build_synthetic(..., host_cache_ratio=r)`` the embedding is a
+:class:`~.embedding.HostEmbedding`: the table and LazyAdam's m and v live
+in pinned host memory behind a cache of the top-degree rows on the card,
+and the gather and the apply reach the host rows with kernels E and F.
+:func:`train_step` runs unchanged on either embedding.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .embedding import Embedding, LazyAdam
+from .embedding import Embedding, HostEmbedding, LazyAdam, hot_ids_by_degree
 from .graph import GraphStructure
 from .models import HomoGNN, cross_entropy_loss
 from .utils.device import DeviceLike, resolve_device
@@ -48,19 +54,24 @@ class SageTrainState:
 
     config: SageTrainConfig
     graph: GraphStructure
-    embedding: Embedding
+    embedding: Union[Embedding, HostEmbedding]
     model: HomoGNN
     dense_opt: torch.optim.Optimizer
     labels: torch.Tensor  # [n_nodes] int32 class of every node
 
 
 def build_synthetic(config: SageTrainConfig = SageTrainConfig(), device: DeviceLike = "cuda",
-                    seed: int = 0) -> SageTrainState:
+                    seed: int = 0, host_cache_ratio: Optional[float] = None) -> SageTrainState:
     """The synthetic graph, embedding and model of ``bench_train_step``:
     degrees from ``numpy.random.RandomState(seed + 1)`` (as the bench draws
     them), uniform random neighbours, a scaled-normal table, random labels
     and weights, all drawn on ``device`` from one generator seeded by
-    ``seed``."""
+    ``seed``.
+
+    ``host_cache_ratio`` None keeps the embedding in device memory. A ratio
+    puts it in the host tier (:class:`HostEmbedding`, ``cache_ratio`` of it)
+    with the ``hot_ids_by_degree(row_ptr, ratio)`` rows cached; the draws,
+    and so the table, graph, labels and weights, are the same either way."""
     dev = resolve_device(device)
     n, deg = config.n_nodes, config.deg
     degs = np.random.RandomState(seed + 1).randint(deg // 2, deg + deg // 2 + 1, n)
@@ -70,8 +81,14 @@ def build_synthetic(config: SageTrainConfig = SageTrainConfig(), device: DeviceL
     col = torch.randint(0, n, (int(row_ptr[-1]),), generator=gen, device=dev, dtype=torch.int32)
     graph = GraphStructure(torch.from_numpy(row_ptr).to(dev), col, n,
                            max_degree=int(degs.max()))
-    embedding = Embedding.create(n, config.dim, optimizer=LazyAdam(), dtype=config.dtype,
-                                 device=dev).init(gen)
+    if host_cache_ratio is None:
+        embedding = Embedding.create(n, config.dim, optimizer=LazyAdam(), dtype=config.dtype,
+                                     device=dev).init(gen)
+    else:
+        embedding = HostEmbedding.create(
+            n, config.dim, optimizer=LazyAdam(), dtype=config.dtype,
+            cache_ratio=host_cache_ratio, device=dev,
+        ).init(gen, hot_ids=hot_ids_by_degree(row_ptr, host_cache_ratio))
     model = HomoGNN(config.dim, config.hidden, config.num_classes,
                     num_layers=len(config.fanouts), device=dev)
     model.reset_parameters(gen)
@@ -105,7 +122,10 @@ def train_step(state: SageTrainState, centers: torch.Tensor, labels: torch.Tenso
     mark("forward_backward")
     state.dense_opt.step()
     mark("dense_adam")
-    state.embedding.apply_gradients(ids, rows.grad, cfg.lr, mask=ml.unique_mask,
-                                    assume_unique=True)
+    if isinstance(state.embedding, HostEmbedding):  # the host apply always dedups
+        state.embedding.apply_gradients(ids, rows.grad, cfg.lr, mask=ml.unique_mask)
+    else:
+        state.embedding.apply_gradients(ids, rows.grad, cfg.lr, mask=ml.unique_mask,
+                                        assume_unique=True)
     mark("sparse_apply")
     return loss.detach()
