@@ -3,8 +3,10 @@
 Drives the port's paths through their public entry points: the sampled
 GraphSAGE training step (``wholegraph_tpu_torch.train``) with its embedding
 in device memory, the host-memory tier's gather (``HostEmbedding.gather``)
-at ``bench_host_gather``'s shapes, and the same training step with the
-table and LazyAdam's m and v in pinned host memory. In order:
+at ``bench_host_gather``'s shapes, the same training step with the table
+and LazyAdam's m and v in pinned host memory, and full-graph message
+passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
+``FullGraph``, forward and backward). In order:
 
 1. builds every hand-written kernel from ``wholegraph_tpu_torch/csrc``;
 2. measures the host link: the pinned->card and card->pinned rate of a
@@ -37,14 +39,38 @@ table and LazyAdam's m and v in pinned host memory. In order:
    HOST_STEPS timed steps with the stage split, the
    cache hit fraction, peak device memory and pinned bytes, failing if any
    of kernels A-F was not launched;
+9. ``[fg_spmm]``: kernel G at ``bench_spmm_clustered``'s shapes
+   (``clustered_csr(2^20, 16, 192)``, 20,441,541 edges, x [2^20, 256] f32):
+   mean, sum and weighted sum held against the plain version, then the
+   forward plus backward of ``spmm_window``'s mean with G's transposed
+   launch held against its plain version and dx against an ``index_add_``
+   scatter; times beside the bound, the plain version and cuSPARSE
+   (``torch.sparse.mm``);
+10. ``[fg_sddmm]``: kernel H at ``bench_sddmm_clustered``'s shapes against
+    its plain version, beside cuSPARSE ``sampled_addmm``;
+11. ``[fg_gat]``: the GAT layer at ``bench_gat_layer``'s shapes (2^18 nodes,
+    4 heads of 64 over width 256, self loop): one captured forward plus
+    backward with the counts from 0, every G and H call held against its
+    plain version, ``attn_src``'s gradient nonzero; forward and forward
+    plus backward timed;
+12. ``[fg_parity]``: tiny full-graph SAGE, GCN and GAT on the card against
+    the CPU from the same numpy data;
+13. ``[fg_model]``: ``FullGraphConfig()`` (the bench graph, a [2^20, 256]
+    f32 device-memory embedding as the features) with a 2-layer SAGE and a
+    2-layer GCN: for each, the counts from 0, ``eval_full_graph`` on
+    FG_CENTERS centres, FG_STEPS timed ``full_graph_value_and_grad`` runs,
+    failing unless A and G (both routes) were launched;
 
-then prints a ``kernels`` JSON line, the card's name and power limit, and,
+then prints a ``kernels`` JSON line (A-H, G's forward and transposed
+routes apart), the card's name and power limit, and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without CUDA it exits non-zero before printing any result.
 """
 
 import contextlib
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -64,7 +90,7 @@ from wholegraph_tpu_torch.embedding import (Embedding, HostEmbedding, LazyAdam, 
 from wholegraph_tpu_torch.embedding import embedding as emb_mod  # noqa: E402
 from wholegraph_tpu_torch.embedding import host_embedding as host_mod  # noqa: E402
 from wholegraph_tpu_torch.graph import GraphStructure  # noqa: E402
-from wholegraph_tpu_torch.models import HomoGNN  # noqa: E402
+from wholegraph_tpu_torch.models import GATConv, HomoGNN  # noqa: E402
 from wholegraph_tpu_torch.ops import KERNELS  # noqa: E402
 from wholegraph_tpu_torch.ops import gather_kernels as G  # noqa: E402
 from wholegraph_tpu_torch.ops import host_kernels as H  # noqa: E402
@@ -79,6 +105,8 @@ LINK_BYTES_PER_S = 64e9     # H100 SXM PCIe Gen5 x16: 128 GB/s both ways (NVIDIA
 STEPS = 100                 # timed full-width steps (p90 has 10 beyond it)
 HOST_STEPS = 30             # timed host-tier steps (p90 has 3 beyond it)
 HOST_CACHE_RATIO = 0.25     # __graft_entry__.py's host-tier cache_ratio
+FG_STEPS = 20               # timed full-graph value_and_grad runs per model (p90 has 2 beyond it)
+FG_CENTERS = 1024           # centres of the full-graph evaluation and loss
 F32_EPS = float(np.finfo(np.float32).eps)
 BF16_EPS = 2.0 ** -7
 
@@ -153,6 +181,7 @@ def max_err(a, b):
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+        k.routes.clear()
 
 
 def read_launches():
@@ -336,15 +365,23 @@ def link_rates():
 
 
 def device_time(state, batch, step_ms, steps=10):
-    """Kernel time per step under torch.profiler, its share of the
+    """Kernel time per training step under torch.profiler, its share of the
     unprofiled median step, and the kernels that take most of it."""
+    work = [batch() for _ in range(steps)]
+    profile_steps("profile", lambda i: wt.train_step(state, *work[i], seed=1000 + i),
+                  step_ms, steps)
+
+
+def profile_steps(tag, step, step_ms, steps):
+    """Kernel time per call of ``step(i)`` under torch.profiler over
+    ``steps`` calls, its share of the unprofiled median ``step_ms``, and the
+    kernels that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
-    work = [batch() for _ in range(steps)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i, (c, y) in enumerate(work):
-            wt.train_step(state, c, y, seed=1000 + i)
+        for i in range(steps):
+            step(i)
         torch.cuda.synchronize()
     # device-side entries, less user annotations (Optimizer.step's range),
     # which span kernels already counted
@@ -352,11 +389,11 @@ def device_time(state, batch, step_ms, steps=10):
             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
-    log(f"[profile] {steps} steps: device busy {busy_ms} ms per step, "
+    log(f"[{tag}] {steps} steps: device busy {busy_ms} ms per step, "
         f"{len(kern)} kernel names, {sum(e.count for e in kern) / steps} launches per step; "
         f"busy share of the {step_ms} ms median step: {busy_ms / step_ms}")
     for e in top:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
             f"{e.count // steps:5d}x  {e.key[:100]}")
 
 
@@ -659,7 +696,9 @@ def host_tier_phase(cfg, link):
     step_ms, host_ms, stage_ms, losses, c = train_timed(state, batch, HOST_STEPS, 2)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    require(all(n > 0 for n in launches.values()), f"a kernel of the host tier never ran: {launches}")
+    path = (G.ROW_GATHER, G.ROW_SCATTER, G.SAMPLE_COLS, S.NEIGHBOR_AGG, H.HOST_GATHER,
+            H.HOST_SCATTER)
+    require(all(launches[k.name] > 0 for k in path), f"a kernel of the host tier never ran: {launches}")
     require(bool(torch.isfinite(emb.gather(c)).all()), "non-finite host-tier rows")
     require(coherent(emb), "host tier: the cache lost coherence over the timed steps")
     report_steps("host_tier", HOST_STEPS, step_ms, host_ms, stage_ms, losses, peak, launches)
@@ -669,6 +708,461 @@ def host_tier_phase(cfg, link):
     del state, emb, host_tensors
     free_pinned()
     return errs, times, launches
+
+
+# ---------------------------------------------------------------------------
+# the full-graph paths: kernels G (CSR SpMM) and H (CSR SDDMM)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def capture_kw(module, name, calls):
+    """As :func:`capture`, keeping each call's ``(args, kwargs)``."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def longest_row(row_ptr):
+    return int((row_ptr[1:] - row_ptr[:-1]).max()) if row_ptr.numel() > 1 else 0
+
+
+def g_tol(ref, K, dtype=torch.float32):
+    """Kernel G against its plain version: both add up to K values (K the
+    CSR's longest row) in other orders, so K f32 ulps of the largest output,
+    plus one bf16 ulp when the output is rounded to bf16."""
+    scale = max(1.0, ref.float().abs().max().item())
+    return K * F32_EPS * scale + (BF16_EPS * scale if dtype == torch.bfloat16 else 0.0)
+
+
+def h_tol(ref, D):
+    """Kernel H against its plain version: a dot of D products in other
+    orders, D f32 ulps of the largest value."""
+    return D * F32_EPS * max(1.0, ref.abs().max().item())
+
+
+def sparse_csr(row_ptr, col, vals, n_cols):
+    """The CSR as a torch sparse tensor, for the cuSPARSE yardsticks."""
+    return torch.sparse_csr_tensor(row_ptr, col, vals, size=(row_ptr.numel() - 1, n_cols),
+                                   check_invariants=False)
+
+
+def spmm_times(case, args, kw, library, iters=20, plain_iters=3):
+    """One kernel G call (``csr_spmm(*args, **kw)``) held against its plain
+    version, then timed beside its bound, the plain version and the
+    cuSPARSE call ``library``."""
+    row_ptr, col, x = args
+    plain_kw = {k: v for k, v in kw.items() if k != "route"}
+    ref = S.csr_spmm_plain(*args, **plain_kw)
+    K = longest_row(row_ptr)
+    tol = g_tol(ref, K, x.dtype)
+    err = max_err(S.csr_spmm(*args, **kw), ref)
+    require(err <= tol, f"csr_spmm {case} err {err} > tol {tol}")
+    E, D, es = col.numel(), x.shape[1], x.element_size()
+    rows_read = torch.unique(col).numel()
+    nbytes = (rows_read * D * es + ref.numel() * es + 4 * E + 4 * row_ptr.numel()
+              + (4 * E if kw.get("edge_weight") is not None else 0))
+    b_ms, by = bound_ms(nbytes, 2.0 * E * D)
+    t = {"case": case, "ms": cuda_ms(lambda: S.csr_spmm(*args, **kw), iters),
+         "plain_ms": cuda_ms(lambda: S.csr_spmm_plain(*args, **plain_kw), plain_iters,
+                             warmup=1),
+         "library_ms": cuda_ms(library, iters), "bound_ms": b_ms, "bound_by": by,
+         "edges": E, "dim": D, "longest_row": K, "source_rows_read": rows_read}
+    t["Medges_per_s"] = E / t["ms"] / 1e3
+    t["bound_share"] = b_ms / t["ms"]
+    return {"case": case, "max_abs_err": err, "tol": tol}, t
+
+
+def sddmm_times(case, args, library, iters=20, plain_iters=3):
+    """One kernel H call held against its plain version, then timed."""
+    row_ptr, col, a, b = args
+    ref = S.csr_sddmm_plain(*args)
+    tol = h_tol(ref, a.shape[1])
+    err = max_err(S.csr_sddmm(*args), ref)
+    require(err <= tol, f"csr_sddmm {case} err {err} > tol {tol}")
+    E, D, es = col.numel(), a.shape[1], a.element_size()
+    a_rows = int(((row_ptr[1:] - row_ptr[:-1]) > 0).sum())
+    b_rows = torch.unique(col).numel()
+    nbytes = (a_rows + b_rows) * D * es + 4 * E + 4 * row_ptr.numel() + 4 * E
+    b_ms, by = bound_ms(nbytes, 2.0 * E * D)
+    t = {"case": case, "ms": cuda_ms(lambda: S.csr_sddmm(*args), iters),
+         "plain_ms": cuda_ms(lambda: S.csr_sddmm_plain(*args), plain_iters, warmup=1),
+         "library_ms": cuda_ms(library, iters), "bound_ms": b_ms, "bound_by": by,
+         "edges": E, "dim": D}
+    t["Medges_per_s"] = E / t["ms"] / 1e3
+    t["bound_share"] = b_ms / t["ms"]
+    return {"case": case, "max_abs_err": err, "tol": tol}, t
+
+
+def fmt_times(t):
+    return (f"{t['ms']} ms ({t['Medges_per_s']} Medges/s, {t['bound_share']} of the "
+            f"{t['bound_ms']} ms bound, {t['bound_by']}); plain {t['plain_ms']} ms; "
+            f"cuSPARSE {t['library_ms']} ms")
+
+
+def fg_spmm_phase(g, fg):
+    """Kernel G at bench_spmm_clustered's shapes (x [2^20, 256] f32): the
+    forward as mean, sum and weighted sum, and the forward plus backward of
+    ``sum(spmm_window(..., reduce="mean"))`` with its transposed launch."""
+    n, dim = g.node_count, 256
+    E = g.edge_count
+    rp, col = g.row_ptr, g.col
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    x = torch.randn(n, dim, generator=gen, device="cuda")
+    w = torch.rand(E, generator=gen, device="cuda")
+    dst = S.csr_edge_dst(rp, E)
+    inv_deg = 1.0 / (rp[1:] - rp[:-1]).clamp(min=1).float()
+    errs, times = [], []
+    for case, reduce, weight, vals in (("mean", "mean", None, inv_deg[dst]),
+                                       ("sum", "sum", None, torch.ones(E, device="cuda")),
+                                       ("weighted sum", "sum", w, w)):
+        lib = sparse_csr(rp, col, vals, n)
+        e, t = spmm_times(f"bench {case} [{n}, {dim}] f32", (rp, col, x),
+                          {"reduce": reduce, "edge_weight": weight},
+                          lambda: torch.sparse.mm(lib, x))
+        errs.append(e)
+        times.append(t)
+        log(f"[fg_spmm] G {case}: " + fmt_times(t) + f"; err {e['max_abs_err']} (tol {e['tol']})")
+        del lib
+
+    # forward + backward of spmm_window's mean with respect to x
+    xg = x.clone().requires_grad_()
+    plan = {"window": fg.window, "edge_cap": fg.edge_cap}
+
+    def fwd_bwd():
+        xg.grad = None
+        S.spmm_window(rp, col, xg, reduce="mean", **plan).sum().backward()
+
+    calls = []
+    with capture_kw(S, "csr_spmm", calls):
+        fwd_bwd()
+        torch.cuda.synchronize()
+    require(len(calls) == 2 and calls[1][1].get("route") == "transposed",
+            f"spmm_window's forward + backward made {len(calls)} G calls: "
+            f"{[c[1].get('route', 'forward') for c in calls]}")
+    (t_rp, t_col, ctd), kw = calls[1]
+    K_t = longest_row(t_rp)
+    # the plain backward, independently: dx[col_e] += ct[dst_e] / deg, chunked
+    dx_ref = torch.zeros_like(x)
+    ct = torch.ones(n, dim, device="cuda") * inv_deg[:, None]
+    for i in range(0, E, S.PLAIN_CHUNK):
+        j = slice(i, i + S.PLAIN_CHUNK)
+        dx_ref.index_add_(0, col[j].long(), ct[dst[j]])
+    del ct
+    err_dx = max_err(xg.grad, dx_ref)
+    tol_dx = g_tol(dx_ref, K_t)
+    require(err_dx <= tol_dx, f"spmm_window mean dx err {err_dx} > tol {tol_dx}")
+    lib_t = sparse_csr(t_rp, t_col, torch.ones(E, device="cuda"), n)
+    e_t, t_t = spmm_times(f"bench backward dx (transposed CSR, longest row {K_t})",
+                          (t_rp, t_col, ctd), kw, lambda: torch.sparse.mm(lib_t, ctd))
+    e_dx = {"case": "bench backward dx vs index_add_ scatter", "max_abs_err": err_dx,
+            "tol": tol_dx}
+    log(f"[fg_spmm] G transposed (backward dx): " + fmt_times(t_t)
+        + f"; err {e_t['max_abs_err']} (tol {e_t['tol']}); whole dx against an index_add_ "
+        f"scatter: err {err_dx} (tol {tol_dx})")
+    fb_ms = cuda_ms(fwd_bwd, 5, warmup=1)
+    tr_ms = cuda_ms(lambda: S.transpose_csr(rp, col, n), 5, warmup=1)
+    fb = {"fwd_bwd_ms": fb_ms, "fwd_bwd_Medges_per_s": E / fb_ms / 1e3,
+          "transpose_csr_ms": tr_ms}
+    log(f"[fg_spmm] spmm_window mean forward + backward: {fb_ms} ms "
+        f"({fb['fwd_bwd_Medges_per_s']} Medges/s; the transposed CSR is built in each call, "
+        f"{tr_ms} ms of it)")
+    del xg, lib_t, calls, dx_ref, x, w, dst
+    torch.cuda.empty_cache()
+    return (errs, times), ([e_t, e_dx], [t_t]), fb
+
+
+def fg_sddmm_phase(g):
+    """Kernel H at bench_sddmm_clustered's shapes (a, b [2^20, 256] f32)."""
+    n, dim = g.node_count, 256
+    rp, col = g.row_ptr, g.col
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    a = torch.randn(n, dim, generator=gen, device="cuda")
+    b = torch.randn(n, dim, generator=gen, device="cuda")
+    pattern = sparse_csr(rp, col, torch.ones(g.edge_count, device="cuda"), n)
+    e, t = sddmm_times(f"bench [{n}, {dim}] f32", (rp, col, a, b),
+                       lambda: torch.sparse.sampled_addmm(pattern, a, b.t(), beta=0.0))
+    lib_err = max_err(torch.sparse.sampled_addmm(pattern, a, b.t(), beta=0.0).values(),
+                      S.csr_sddmm(rp, col, a, b))
+    t["library_max_abs_err"] = lib_err
+    log(f"[fg_sddmm] H: " + fmt_times(t) + f"; err {e['max_abs_err']} (tol {e['tol']}); "
+        f"cuSPARSE sampled_addmm differs from H by {lib_err}")
+    del a, b, pattern
+    torch.cuda.empty_cache()
+    return [e], [t]
+
+
+def init_gat(layer, gen):
+    """bench_gat_layer's layer with random weights: ``proj`` ~ normal with
+    std 1/sqrt(fan_in), ``attn_*`` uniform within ±sqrt(6 / (H + D))."""
+    with torch.no_grad():
+        w = layer.proj.weight
+        w.copy_(torch.randn(w.shape, generator=gen, device=w.device) / math.sqrt(w.shape[1]))
+        for p in (layer.attn_src, layer.attn_dst):
+            lim = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+            p.copy_((2 * torch.rand(p.shape, generator=gen, device=p.device) - 1) * lim)
+
+
+def fg_gat_phase():
+    """The GAT layer at bench_gat_layer's shapes: clustered_csr(2^18, 16,
+    192), 4 heads of 64 over input width 256, self loop. One captured
+    forward + backward (counts from 0) whose every G and H call is held
+    against its plain version, then the forward and the forward + backward
+    timed."""
+    n, heads, dh, din = 1 << 18, 4, 64, 256
+    t0 = time.perf_counter()
+    g = wt.clustered_csr(n, 16, 192)
+    fg = g.to_full_graph(windowed=True)
+    torch.cuda.synchronize()
+    require(g.edge_count == 5_111_434, f"GAT bench graph has {g.edge_count} edges")
+    layer = GATConv(din, dh, num_heads=heads, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    init_gat(layer, gen)
+    feats = torch.randn(n, din, generator=gen, device="cuda")
+    log(f"[fg_gat] clustered_csr(2^18, 16, 192): {g.edge_count} edges, plan window {fg.window}; "
+        f"layer {heads} x {dh} over {din}, built in {time.perf_counter() - t0:.2f} s")
+
+    def fwd_bwd():
+        layer.zero_grad(set_to_none=True)
+        x = feats.detach().requires_grad_()
+        loss = layer(x, fg).sum()
+        loss.backward()
+        return loss.detach(), x.grad
+
+    g_calls, h_calls = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    with capture_kw(S, "csr_spmm", g_calls), capture_kw(S, "csr_sddmm", h_calls):
+        loss, dx = fwd_bwd()
+        torch.cuda.synchronize()
+    launches = read_launches()
+    routes = dict(S.CSR_SPMM.routes)
+    require(launches["csr_spmm"] > 0 and launches["csr_sddmm"] > 0
+            and routes.get("transposed", 0) > 0 and routes.get("forward", 0) > 0,
+            f"the GAT layer did not launch G (both routes) and H: {launches} {routes}")
+    require(len(g_calls) == 2 * heads and len(h_calls) == heads,
+            f"GAT calls: {len(g_calls)} G, {len(h_calls)} H")
+    require(bool(torch.isfinite(loss)) and bool(torch.isfinite(dx).all()), "non-finite GAT grads")
+    attn = layer.attn_src.grad.abs().max().item()
+    require(attn > 0, "attn_src's gradient is zero")
+    errs = {"forward": [], "transposed": [], "sddmm": []}
+    times = {"forward": [], "transposed": [], "sddmm": []}
+    for i, (args, kw) in enumerate(g_calls):
+        route = kw.get("route", "forward")
+        first = not times[route]
+        rp_, col_, x_ = args
+        w_ = kw["edge_weight"]
+        if first:  # time the first call of each route, check every call
+            lib = sparse_csr(rp_, col_, w_.contiguous(), x_.shape[0])
+            e, t = spmm_times(f"GAT G {route} call {i} [{x_.shape[0]}, {x_.shape[1]}] "
+                              f"stride {x_.stride(0)}", args, kw,
+                              lambda: torch.sparse.mm(lib, x_), iters=10)
+            times[route].append(t)
+            del lib
+        else:
+            ref = S.csr_spmm_plain(*args, reduce=kw["reduce"], edge_weight=w_)
+            tol = g_tol(ref, longest_row(rp_))
+            e = {"case": f"GAT G {route} call {i}",
+                 "max_abs_err": max_err(S.csr_spmm(*args, **kw), ref), "tol": tol}
+            require(e["max_abs_err"] <= tol, f"GAT G call {i}: {e}")
+        errs[route].append(e)
+    for i, args in enumerate(a for a, _ in h_calls):
+        if i == 0:
+            pat = sparse_csr(args[0], args[1], torch.ones(args[1].numel(), device="cuda"),
+                             args[3].shape[0])
+            e, t = sddmm_times(f"GAT H (attention dw) call {i} [{args[2].shape[0]}, "
+                               f"{args[2].shape[1]}]", args,
+                               lambda: torch.sparse.sampled_addmm(pat, args[2], args[3].t(),
+                                                                  beta=0.0), iters=10)
+            times["sddmm"].append(t)
+            del pat
+        else:
+            ref = S.csr_sddmm_plain(*args)
+            e = {"case": f"GAT H call {i}", "max_abs_err": max_err(S.csr_sddmm(*args), ref),
+                 "tol": h_tol(ref, args[2].shape[1])}
+            require(e["max_abs_err"] <= e["tol"], f"GAT H call {i}: {e}")
+        errs["sddmm"].append(e)
+    del g_calls, h_calls
+    for route in errs:
+        log(f"[fg_gat] {route}: " + json.dumps(errs[route]))
+        for t in times[route]:
+            log(f"[fg_gat]   {t['case']}: " + fmt_times(t))
+
+    def fwd():
+        with torch.no_grad():
+            layer(feats, fg)
+
+    torch.cuda.reset_peak_memory_stats()
+    f_ms = cuda_ms(fwd, 10, warmup=2)
+    fb_ms = cuda_ms(fwd_bwd, 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    E = g.edge_count
+    log(f"[fg_gat] forward {f_ms} ms ({E / f_ms / 1e3} Medges/s), forward + backward over "
+        f"params and features {fb_ms} ms ({E / fb_ms / 1e3} Medges/s); loss {float(loss)}, "
+        f"max |d attn_src| {attn}; peak memory {peak} bytes; launches of one forward + "
+        f"backward {launches}, G routes {routes}")
+    profile_steps("fg_gat profile", lambda i: fwd_bwd(), fb_ms, 3)
+    summary = {"fwd_ms": f_ms, "fwd_bwd_ms": fb_ms, "edges": E, "peak_bytes": peak,
+               "launches": launches, "routes": routes}
+    del layer, feats, fg, g
+    torch.cuda.empty_cache()
+    return errs, times, summary
+
+
+def fg_parity():
+    """Tiny SAGE, GCN and GAT full-graph models on the card and on the CPU
+    from the same numpy-made graph, features and weights: logits within
+    1e-5 and every gradient within 1e-4 of the largest CPU value (f32 sums
+    in other orders)."""
+    cfg = wt.FullGraphConfig(n_nodes=700, deg=6, width=40, dim=64, hidden=64, num_classes=4)
+    errs = {}
+    for mt in ("sage", "gcn", "gat"):
+        c = dataclasses.replace(cfg, model_type=mt)
+        cpu = wt.build_full_graph(c, device="cpu", seed=1)
+        model = HomoGNN(c.dim, c.hidden, c.num_classes, model_type=mt, device="cuda")
+        model.load_state_dict(cpu.model.state_dict())
+        gfg = GraphStructure(cpu.graph.row_ptr.cuda(), cpu.graph.col.cuda(),
+                             c.n_nodes).to_full_graph(windowed=True)
+        x = cpu.embedding.table
+        centers = torch.arange(0, c.n_nodes, 7, dtype=torch.int32)
+        y = cpu.labels[centers.long()]
+        with torch.no_grad():
+            la, lb = model(x.cuda(), graph=gfg).cpu(), cpu.model(x, graph=cpu.fg)
+        fa = wt.full_graph_value_and_grad(model, x.cuda(), gfg, centers.cuda(), y.cuda())
+        fb = wt.full_graph_value_and_grad(cpu.model, x, cpu.fg, centers, y)
+        errs[mt] = {"logits": max_err(la, lb), "loss": abs(float(fa[0]) - float(fb[0])),
+                    "dx": max_err(fa[1][1].cpu(), fb[1][1])}
+        require(errs[mt]["logits"] <= 1e-5 * max(1.0, lb.abs().max().item()),
+                f"[fg_parity] {mt} logits {errs[mt]}")
+        require(errs[mt]["loss"] <= 1e-5 * max(1.0, abs(float(fb[0]))), f"{mt} loss {errs[mt]}")
+        for name, gb in [("dx", fb[1][1])] + list(fb[1][0].items()):
+            ga = fa[1][1] if name == "dx" else fa[1][0][name]
+            err = max_err(ga.cpu(), gb)
+            errs[mt][name] = err
+            require(err <= 1e-4 * max(1.0, gb.abs().max().item()),
+                    f"[fg_parity] {mt} gradient {name} differs: {err}")
+    log(f"[fg_parity] tiny full-graph models (700 nodes, width 64), card vs CPU: "
+        + json.dumps(errs))
+
+
+def check_model_calls(mt, a_calls, g_calls):
+    """The A call of an evaluation (bit-equal) and every G call of it and
+    of one forward + backward, against their plain versions."""
+    a_err = max_err(G.gather_rows(*a_calls[0]), G.gather_rows_plain(*a_calls[0]))
+    require(a_err == 0.0, f"[fg_model] {mt}: row_gather differs from its plain version")
+    checks = []
+    for i, (args, kw) in enumerate(g_calls):
+        ref = S.csr_spmm_plain(*args, reduce=kw["reduce"], edge_weight=kw.get("edge_weight"))
+        err, tol = max_err(S.csr_spmm(*args, **kw), ref), g_tol(ref, longest_row(args[0]))
+        require(err <= tol, f"[fg_model] {mt} G call {i}: err {err} > tol {tol}")
+        checks.append({"case": f"{mt} G {kw.get('route', 'forward')} call {i} "
+                               f"{list(args[2].shape)}", "max_abs_err": err, "tol": tol})
+    return checks
+
+
+def fg_model_phase():
+    """``FullGraphConfig()``: the bench graph, a device-memory Embedding of
+    [2^20, 256] f32 features, a 2-layer SAGE (mean) and a 2-layer GCN. For
+    each: counts from 0, ``eval_full_graph`` on FG_CENTERS centres, then
+    FG_STEPS timed ``full_graph_value_and_grad`` runs, counts read."""
+    cfg = wt.FullGraphConfig()
+    t0 = time.perf_counter()
+    st = wt.build_full_graph(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"[fg_model] {cfg} built in {time.perf_counter() - t0:.2f} s: "
+        f"{st.graph.edge_count} edges, plan window {st.fg.window}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    centers = torch.randperm(cfg.n_nodes, generator=gen, device="cuda")[:FG_CENTERS].to(torch.int32)
+    labels = st.labels[centers.long()]
+    gcn = HomoGNN(cfg.dim, cfg.hidden, cfg.num_classes, num_layers=cfg.num_layers,
+                  model_type="gcn", device="cuda")
+    gcn.reset_parameters(gen)
+    x = st.embedding.table
+    out = {}
+    for mt, model in (("sage", st.model), ("gcn", gcn)):
+        # warm-up (it builds the graph's transposed CSR once), capturing
+        # every A and G call, each then held against its plain version
+        a_calls, g_calls = [], []
+        with capture(emb_mod, "gather_rows", a_calls), capture_kw(S, "csr_spmm", g_calls):
+            wt.eval_full_graph(model, st.embedding, st.fg, centers, labels)
+            wt.full_graph_value_and_grad(model, x, st.fg, centers, labels)
+            torch.cuda.synchronize()
+        require(len(a_calls) == 1 and len(g_calls) == 3 * cfg.num_layers,
+                f"[fg_model] {mt}: {len(a_calls)} A and {len(g_calls)} G calls")
+        checks = check_model_calls(mt, a_calls, g_calls)
+        log(f"[fg_model] {mt}: A over all {cfg.n_nodes} ids bit-equal to its plain version; "
+            f"G calls of one evaluation and one forward + backward: " + json.dumps(checks))
+        del a_calls, g_calls
+        torch.cuda.synchronize()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        e_loss, e_acc = wt.eval_full_graph(model, st.embedding, st.fg, centers, labels)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t1) * 1e3
+        step_ms, host_ms, losses = [], [], []
+        for _ in range(FG_STEPS):
+            torch.cuda.synchronize()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            ev0.record()
+            loss, (grads, dx) = wt.full_graph_value_and_grad(model, x, st.fg, centers, labels)
+            ev1.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+            step_ms.append(ev0.elapsed_time(ev1))
+            losses.append(float(loss))
+        launches = read_launches()
+        routes = dict(S.CSR_SPMM.routes)
+        peak = torch.cuda.max_memory_allocated()
+        require(np.isfinite(float(e_loss)) and all(np.isfinite(losses)),
+                f"[fg_model] {mt}: non-finite loss {float(e_loss)} {losses}")
+        require(bool(torch.isfinite(dx).all()) and all(bool(torch.isfinite(v).all())
+                                                       for v in grads.values()),
+                f"[fg_model] {mt}: non-finite gradients")
+        require(launches["row_gather"] > 0 and launches["csr_spmm"] > 0
+                and routes.get("forward", 0) > 0 and routes.get("transposed", 0) > 0,
+                f"[fg_model] {mt} did not launch A and G (both routes): {launches} {routes}")
+        med = statistics.median(step_ms)
+        log(f"[fg_model] {mt}: eval_full_graph on {FG_CENTERS} centres: loss {float(e_loss)}, "
+            f"accuracy {float(e_acc)}, {eval_ms} ms (host clock)")
+        log(f"[fg_model] {mt}: full_graph_value_and_grad ms (CUDA events) median {med}, "
+            f"p90 {quantile(step_ms, 0.9)}, min {min(step_ms)}, max {max(step_ms)}; host clock "
+            f"median {statistics.median(host_ms)}; losses {losses[:3]}; peak memory {peak} "
+            f"bytes ({peak / 2**30:.2f} GiB); launches {launches}, G routes {routes}")
+        profile_steps(f"fg_model {mt} profile",
+                      lambda i: wt.full_graph_value_and_grad(model, x, st.fg, centers, labels),
+                      med, 3)
+        out[mt] = {"launches": launches, "routes": routes, "step_ms_median": med,
+                   "step_ms_p90": quantile(step_ms, 0.9), "eval_ms": eval_ms, "peak_bytes": peak,
+                   "checks": checks}
+    del st, gcn, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def fg_entry(kern, name, launches, errs, main_call, calls, **extra):
+    """One full-graph kernel's line: the times of its bench-shape call."""
+    return {
+        "name": name, "route": "cuda", "source": f"wholegraph_tpu_torch/csrc/{kern.source}",
+        "replaces": kern.replaces, "launches": launches,
+        "max_abs_err": max(e["max_abs_err"] for e in errs),
+        "tol": max(e["tol"] for e in errs),
+        **{k: main_call[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "case": main_call["case"], "calls": calls, "checks": errs, **extra,
+    }
 
 
 def kernel_entry(kern, launches, errs, times, **extra):
@@ -763,14 +1257,51 @@ def main():
     bench, bench_errs = host_gather_phase(link)
     host_errs, host_times, host_launches = host_tier_phase(cfg, link)
 
+    # the full-graph paths (kernels G and H)
+    t0 = time.perf_counter()
+    g = wt.clustered_csr(1 << 20, 16, 192)
+    fg = g.to_full_graph(windowed=True)
+    torch.cuda.synchronize()
+    require(g.edge_count == 20_441_541, f"the bench graph has {g.edge_count} edges")
+    require(fg.window is not None, "the bench graph's tile plan is infeasible")
+    log(f"[fg_spmm] clustered_csr(2^20, 16, 192): {g.edge_count} edges, longest row "
+        f"{longest_row(g.row_ptr)}, JAX plan window {fg.window}, edge_cap {fg.edge_cap}; built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    (g_errs, g_times), (gt_errs, gt_times), g_fb = fg_spmm_phase(g, fg)
+    h_errs, h_times = fg_sddmm_phase(g)
+    del g, fg
+    torch.cuda.empty_cache()
+    gat_errs, gat_times, gat = fg_gat_phase()
+    fg_parity()
+    fgm = fg_model_phase()
+
+    fg_launches = {k: sum(m["launches"][k] for m in fgm.values()) for k in launches}
+    fg_routes = {r: sum(m["routes"].get(r, 0) for m in fgm.values())
+                 for r in ("forward", "transposed")}
+    fgm_checks = {r: [c for m in fgm.values() for c in m["checks"] if f" {r} " in c["case"]]
+                  for r in ("forward", "transposed")}
     out = [kernel_entry(kern, launches, errs + host_errs.get(key, []), times, steps=STEPS,
                         launches_host_tier=host_launches[kern.name],
+                        launches_fg_model=fg_launches[kern.name],
                         host_tier_calls=host_times.get(key, []))
            for key, (kern, (errs, times)) in checks.items()]
     out.append(kernel_entry(H.HOST_GATHER, host_launches, host_errs["E"] + bench_errs,
                             host_times["E"], steps=HOST_STEPS, bench=bench, link=link))
     out.append(kernel_entry(H.HOST_SCATTER, host_launches, host_errs["F"], host_times["F"],
                             steps=HOST_STEPS, link=link))
+    out.append(fg_entry(S.CSR_SPMM, "csr_spmm", fg_routes["forward"],
+                        g_errs + gat_errs["forward"] + fgm_checks["forward"], g_times[0],
+                        g_times + gat_times["forward"], call_route="forward",
+                        launches_fg_gat=gat["routes"].get("forward", 0),
+                        fg_model=fgm, fg_gat=gat))
+    out.append(fg_entry(S.CSR_SPMM, "csr_spmm_transposed", fg_routes["transposed"],
+                        gt_errs + gat_errs["transposed"] + fgm_checks["transposed"], gt_times[0],
+                        gt_times + gat_times["transposed"], call_route="transposed",
+                        launches_fg_gat=gat["routes"].get("transposed", 0),
+                        spmm_window_fwd_bwd=g_fb))
+    out.append(fg_entry(S.CSR_SDDMM, "csr_sddmm", gat["launches"]["csr_sddmm"],
+                        h_errs + gat_errs["sddmm"], h_times[0], h_times + gat_times["sddmm"],
+                        launches_path="fg_gat (one forward + backward)"))
     log(json.dumps({"kernels": out}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,14 +1,16 @@
-"""Kernels A-F on the card against their plain PyTorch versions, one tiny
-training step on the card against the same step on the CPU, and the same
-for the host-memory tier (kernels E and F on pinned host tables).
+"""Kernels A-H on the card against their plain PyTorch versions, one tiny
+training step on the card against the same step on the CPU, the same for
+the host-memory tier (kernels E and F on pinned host tables), and tiny
+full-graph models (kernels G and H) on the card against the CPU.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so without a card every test
 here skips. On a machine with an H100 run them with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
 
-Tolerances: A, B, C, E and F move bits and must be exact. D sums up to K f32
-values in another order than its plain version: K f32 ulps of the largest
-output, plus one bf16 ulp when the output is rounded to bf16."""
+Tolerances: A, B, C, E and F move bits and must be exact. D and G sum up to
+K f32 values in another order than their plain versions: K f32 ulps of the
+largest output (K the longest row), plus one bf16 ulp when the output is
+rounded to bf16. H's dot of D products: D f32 ulps of the largest value."""
 
 import numpy as np
 import pytest
@@ -272,3 +274,138 @@ def test_host_tier_steps_on_card_match_cpu_and_hbm(dev):
     cached = emb.cache_map >= 0
     assert torch.equal(emb.cache_rows[emb.cache_map[cached].long()].cpu(),
                        emb.host_table[cached.cpu()])
+
+
+# ---------------------------------------------------------------------------
+# kernels G and H: CSR SpMM and SDDMM
+# ---------------------------------------------------------------------------
+
+
+def _csr(n=900, n_src=700, hi=24, long_row=None, seed=22):
+    """A CSR with empty rows (0, 5 and the last) and, optionally, one row of
+    ``long_row`` edges."""
+    g = _gen(seed)
+    deg = torch.randint(0, hi, (n,), generator=g)
+    deg[[0, 5, n - 1]] = 0
+    if long_row:
+        deg[3] = long_row
+    row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64), deg.cumsum(0)]).to(torch.int32)
+    col = torch.randint(0, n_src, (int(row_ptr[-1]),), generator=g, dtype=torch.int32)
+    return row_ptr, col, int(deg.max())
+
+
+def _g_tol(ref, K, dtype):
+    """G's tolerance against its plain version: K f32 ulps of the largest
+    output (K the longest row), plus one bf16 ulp when rounded to bf16."""
+    scale = max(1.0, ref.float().abs().max().item())
+    return K * F32_EPS * scale + (BF16_EPS * scale if dtype == torch.bfloat16 else 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 64, 6, 3])  # 16-byte vectors, a half-warp row, 8 and 4 bytes
+@pytest.mark.parametrize("reduce,weighted", [("sum", False), ("mean", False), ("sum", True)])
+def test_csr_spmm_matches_plain(dev, dtype, D, reduce, weighted):
+    row_ptr, col, K = _csr(long_row=5000)
+    x = torch.randn(700, D, generator=_gen(D)).to(dtype)
+    w = torch.rand(col.shape[0], generator=_gen(23)) if weighted else None
+    before = S.CSR_SPMM.launches
+    out = S.csr_spmm(row_ptr.to(dev), col.to(dev), x.to(dev), reduce=reduce,
+                     edge_weight=None if w is None else w.to(dev)).cpu()
+    assert S.CSR_SPMM.launches == before + 1 and out.dtype == dtype
+    ref = S.csr_spmm_plain(row_ptr, col, x, reduce=reduce, edge_weight=w)
+    assert (out.float() - ref.float()).abs().max().item() <= _g_tol(ref, K, dtype)
+    assert not out[[0, 5, 899]].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 64, 6, 3])
+def test_csr_sddmm_matches_plain(dev, dtype, D):
+    row_ptr, col, _ = _csr(long_row=5000)
+    a = torch.randn(900, D, generator=_gen(24)).to(dtype)
+    b = torch.randn(700, D, generator=_gen(25)).to(dtype)
+    before = S.CSR_SDDMM.launches
+    out = S.csr_sddmm(row_ptr.to(dev), col.to(dev), a.to(dev), b.to(dev)).cpu()
+    assert S.CSR_SDDMM.launches == before + 1 and out.dtype == torch.float32
+    ref = S.csr_sddmm_plain(row_ptr, col, a, b)
+    # a dot of D products in another order: D f32 ulps of the largest value
+    assert (out - ref).abs().max().item() <= D * F32_EPS * max(1.0, ref.abs().max().item())
+
+
+def test_csr_kernels_take_gat_head_views(dev):
+    """D = 64 heads of a [N, 4, 64] tensor, row stride 256, no copy."""
+    row_ptr, col, K = _csr(n=700)
+    featv = torch.randn(700, 4, 64, generator=_gen(26))
+    alpha = torch.rand(col.shape[0], 4, generator=_gen(27))
+    fd, ad = featv.to(dev), alpha.to(dev)
+    for h in range(4):
+        assert fd[:, h, :].stride() == (256, 1)
+        out = S.csr_spmm(row_ptr.to(dev), col.to(dev), fd[:, h, :], edge_weight=ad[:, h]).cpu()
+        ref = S.csr_spmm_plain(row_ptr, col, featv[:, h, :], edge_weight=alpha[:, h])
+        assert (out - ref).abs().max().item() <= _g_tol(ref, K, torch.float32)
+        e = S.csr_sddmm(row_ptr.to(dev), col.to(dev), fd[:, h, :], fd[:, (h + 1) % 4, :]).cpu()
+        eref = S.csr_sddmm_plain(row_ptr, col, featv[:, h, :], featv[:, (h + 1) % 4, :])
+        assert (e - eref).abs().max().item() <= 64 * F32_EPS * max(1.0, eref.abs().max().item())
+
+
+def test_csr_spmm_autograd_on_card_matches_cpu(dev):
+    """CsrSpmm (mean, and weighted sum) and CsrSddmm: forward and every
+    gradient on the card against the same on the CPU; the transposed
+    launches are counted under their own route."""
+    row_ptr, col, _ = _csr(n=700)
+    x = torch.randn(700, 64, generator=_gen(28))
+    w = torch.rand(col.shape[0], generator=_gen(29))
+    ct = torch.randn(700, 64, generator=_gen(30))
+    ct_e = torch.randn(col.shape[0], generator=_gen(31))
+    runs = []
+    t0 = S.CSR_SPMM.routes.get("transposed", 0)
+    for d in (dev, torch.device("cpu")):
+        def leaf(t):
+            return t.detach().clone().to(d).requires_grad_()
+
+        xd, wd = leaf(x), leaf(w)
+        rp, cd = row_ptr.to(d), col.to(d)
+        S.CsrSpmm.apply(rp, cd, xd, None, "mean").backward(ct.to(d))
+        gx_mean = xd.grad.clone()
+        xd.grad = None
+        S.CsrSpmm.apply(rp, cd, xd, wd, "sum").backward(ct.to(d))
+        ad, bd = leaf(x), leaf(2 * x)
+        S.CsrSddmm.apply(rp, cd, ad, bd).backward(ct_e.to(d))
+        runs.append([t.cpu() for t in (gx_mean, xd.grad, wd.grad, ad.grad, bd.grad)])
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert S.CSR_SPMM.routes.get("transposed", 0) - t0 == 3
+
+
+def test_csr_kernels_refuse_a_cpu_cuda_mix(dev):
+    row_ptr, col, _ = _csr()
+    x = torch.randn(700, 8)
+    with pytest.raises(CudaError):
+        S.csr_spmm(row_ptr.to(dev), col.to(dev), x)
+    with pytest.raises(CudaError):
+        S.csr_sddmm(row_ptr, col.to(dev), torch.zeros(900, 8, device=dev), x.to(dev))
+
+
+def test_full_graph_models_on_card_match_cpu(dev):
+    """Tiny SAGE, GCN and GAT full-graph models: loss and every gradient on
+    the card against the CPU from the same numpy data and weights."""
+    import dataclasses
+
+    cfg = wt.FullGraphConfig(n_nodes=700, deg=6, width=40, dim=64, hidden=64, num_classes=4)
+    for model_type in ("sage", "gcn", "gat"):
+        c = dataclasses.replace(cfg, model_type=model_type)
+        on_cpu = wt.build_full_graph(c, device="cpu", seed=1)
+        fg = on_cpu.graph.to_full_graph()
+        model = HomoGNN(c.dim, c.hidden, c.num_classes, model_type=model_type, device=dev)
+        model.load_state_dict(on_cpu.model.state_dict())
+        gfg = GraphStructure(on_cpu.graph.row_ptr.to(dev), on_cpu.graph.col.to(dev),
+                             c.n_nodes).to_full_graph()
+        x = on_cpu.embedding.table
+        centers = torch.arange(0, 700, 7, dtype=torch.int32)
+        y = on_cpu.labels[centers.long()]
+        la, (ga, dxa) = wt.full_graph_value_and_grad(model, x.to(dev), gfg, centers.to(dev),
+                                                     y.to(dev))
+        lb, (gb, dxb) = wt.full_graph_value_and_grad(on_cpu.model, x, fg, centers, y)
+        torch.testing.assert_close(la.cpu(), lb, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dxa.cpu(), dxb, rtol=1e-5, atol=1e-5)
+        for k in gb:
+            torch.testing.assert_close(ga[k].cpu(), gb[k], rtol=1e-4, atol=1e-5, msg=k)

@@ -63,7 +63,8 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["embedding", "graph", "model", "build_synthetic",
-                                   "host_embedding", "build_synthetic_host_tier"])
+                                   "host_embedding", "build_synthetic_host_tier",
+                                   "clustered_csr", "gat_model", "build_full_graph"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     calls = {
         "embedding": lambda: Embedding.create(10, 4),
@@ -73,6 +74,9 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
         "host_embedding": lambda: HostEmbedding.create(10, 4),
         "build_synthetic_host_tier": lambda: wt.build_synthetic(wt.SageTrainConfig(n_nodes=10),
                                                                 host_cache_ratio=0.25),
+        "clustered_csr": lambda: wt.clustered_csr(10, 4, 4),
+        "gat_model": lambda: HomoGNN(8, 8, 2, model_type="gat", num_heads=2),
+        "build_full_graph": lambda: wt.build_full_graph(wt.FullGraphConfig(n_nodes=10)),
     }
     with pytest.raises(CudaError, match="CUDA is not available"):
         calls[entry]()
@@ -91,6 +95,16 @@ def test_kernels_import_and_cpu_path_build_nothing(monkeypatch):
         state = wt.build_synthetic(cfg, device="cpu", seed=0, host_cache_ratio=ratio)
         assert np.isfinite(float(wt.train_step(state, c, state.labels[c.long()], seed=0)))
     assert isinstance(state.embedding, HostEmbedding)
+    # full-graph SAGE and GAT, forward and backward (kernels A, G and H)
+    for model_type in ("sage", "gat"):
+        fcfg = wt.FullGraphConfig(n_nodes=60, deg=4, width=8, dim=8, hidden=8, num_classes=3,
+                                  model_type=model_type, num_heads=2)
+        fs = wt.build_full_graph(fcfg, device="cpu")
+        x = fs.embedding.gather(torch.arange(60, dtype=torch.int32))
+        loss, (grads, dx) = wt.full_graph_value_and_grad(fs.model, x, fs.fg, c, fs.labels[:4])
+        assert np.isfinite(float(loss)) and torch.isfinite(dx).all()
+        assert np.isfinite(float(wt.eval_full_graph(fs.model, fs.embedding, fs.fg, c,
+                                                    fs.labels[:4])[0]))
     assert not kernels._libs
     assert all(k.launches == 0 for k in KERNELS)
 
@@ -119,6 +133,14 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
                           torch.ones(2, 3, dtype=torch.bool, device="meta"), True)
     with pytest.raises(CudaError):
         H.host_gather_rows(torch.zeros(16, 8), ids)  # a host table with slots off the CPU
+    row_ptr = torch.tensor([0, 2, 4, 4, 4], dtype=torch.int32)
+    col = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(CudaError):
+        S.csr_spmm(row_ptr.to("meta"), col.to("meta"), meta, reduce="mean")
+    with pytest.raises(CudaError):
+        S.csr_spmm(row_ptr, col, meta)  # a CPU CSR over features off the CPU
+    with pytest.raises(CudaError):
+        S.csr_sddmm(row_ptr.to("meta"), col.to("meta"), meta[:4], meta)
     with pytest.raises(CudaError):
         H.host_scatter_rows(torch.zeros(16, 8), ids, torch.zeros(4, 8, device="meta"))
 

@@ -10,16 +10,21 @@ explicit ``device="cpu"`` runs the kernels' plain PyTorch versions.
 The first slice is the sampled GraphSAGE training step (:mod:`.train`); the
 second puts its embedding in the host-memory tier
 (:class:`.embedding.HostEmbedding`: the table and optimizer state in pinned
-host memory behind a cache of hot rows on the card).
+host memory behind a cache of hot rows on the card); the third is
+full-graph message passing (:mod:`.full_graph`: SAGE, GCN and GAT over a
+:class:`.models.FullGraph`, forward and backward).
 """
 
-from . import embedding, graph, kernels, models, ops, utils
+from . import embedding, full_graph, graph, kernels, models, ops, utils
+from .full_graph import (FullGraphConfig, build_full_graph, clustered_csr, eval_full_graph,
+                         full_graph_value_and_grad)
 from .train import SageTrainConfig, SageTrainState, build_synthetic, train_step
 
 __version__ = "0.1.0"
 
 __all__ = [
     "embedding",
+    "full_graph",
     "graph",
     "kernels",
     "models",
@@ -29,4 +34,9 @@ __all__ = [
     "SageTrainState",
     "build_synthetic",
     "train_step",
+    "FullGraphConfig",
+    "build_full_graph",
+    "clustered_csr",
+    "eval_full_graph",
+    "full_graph_value_and_grad",
 ]

@@ -3,7 +3,7 @@
 Port of the unweighted, single-device part of
 ``wholegraph_tpu/graph/structure.py``: :class:`HopSubgraph`,
 :class:`MultilayerSample` and :class:`GraphStructure` with ``from_coo``,
-``sample_one_hop`` and ``multilayer_sample``.
+``to_full_graph``, ``sample_one_hop`` and ``multilayer_sample``.
 
 Shape discipline is the JAX package's: every hop's output is padded. Layer
 l has ``B * prod_{i<l}(K_i + 1)`` target slots; ``append_unique`` keeps the
@@ -109,6 +109,35 @@ class GraphStructure:
             node_count,
             edge_count=len(dst),
             max_degree=int(counts.max()) if node_count else 0,
+        )
+
+    def to_full_graph(self, *, windowed: bool = False, tile: int = 256):
+        """The :class:`~wholegraph_tpu_torch.models.conv.FullGraph` of this
+        CSR for exact full-graph passes (``structure.py:220-274``): messages
+        flow col → row, ``edge_src = col``, ``edge_dst`` each edge's row,
+        both on the graph's device, and the CSR itself as ``row_ptr``.
+
+        ``windowed=True`` also runs ``plan_spmm_tiles`` (one host pass over
+        the CSR) and records its ``window`` and ``edge_cap`` when the plan
+        is feasible, None otherwise, as the JAX package does. Kernel G
+        needs no plan, so the graph aggregates the same way either way."""
+        from ..models.conv import FullGraph
+        from ..ops.spmm import plan_spmm_tiles
+        from ..ops.spmm_kernels import csr_edge_dst
+
+        window = edge_cap = None
+        if windowed:
+            w, cap, feasible = plan_spmm_tiles(self.row_ptr.cpu().numpy(),
+                                               self.col.cpu().numpy(), tile=tile)
+            if feasible:
+                window, edge_cap = int(w), int(cap)
+        return FullGraph(
+            edge_src=self.col,
+            edge_dst=csr_edge_dst(self.row_ptr, self.col.shape[0]).to(torch.int32),
+            num_nodes=self.node_count,
+            row_ptr=self.row_ptr,
+            window=window,
+            edge_cap=edge_cap,
         )
 
     # -- sampling -------------------------------------------------------------

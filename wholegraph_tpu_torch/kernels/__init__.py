@@ -126,7 +126,9 @@ class Kernel:
 
     ``launches`` counts the calls of this wrapper that launched the kernel;
     callers reset it (``k.launches = 0``) and read it back to show a path
-    went through the kernel."""
+    went through the kernel. ``routes`` splits the count by the label a
+    wrapper passes as ``route=`` (kernel G: ``"forward"`` and
+    ``"transposed"``)."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes: Sequence,
                  replaces: str):
@@ -136,6 +138,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.replaces = replaces
         self.launches = 0
+        self.routes: Dict[str, int] = {}
         self._fn = None
 
     def _load(self):
@@ -149,7 +152,7 @@ class Kernel:
         self._fn, self._err = fn, err
         return fn
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, route: Optional[str] = None) -> None:
         fn = self._fn or self._load()
         rc = fn(*args)
         if rc != 0:
@@ -158,6 +161,8 @@ class Kernel:
                 f"({self._err(rc).decode()})"
             )
         self.launches += 1
+        if route is not None:
+            self.routes[route] = self.routes.get(route, 0) + 1
 
 
 def cuda_stream(device) -> int:

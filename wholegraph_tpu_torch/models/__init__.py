@@ -1,5 +1,6 @@
-from .conv import SAGEConv
+from .conv import FullGraph, GATConv, GCNConv, SAGEConv
 from .convert import params_from_jax
-from .gnn import HomoGNN, accuracy, cross_entropy_loss
+from .gnn import HomoGNN, accuracy, cross_entropy_loss, make_conv
 
-__all__ = ["SAGEConv", "HomoGNN", "accuracy", "cross_entropy_loss", "params_from_jax"]
+__all__ = ["FullGraph", "GATConv", "GCNConv", "SAGEConv", "HomoGNN", "accuracy",
+           "cross_entropy_loss", "make_conv", "params_from_jax"]

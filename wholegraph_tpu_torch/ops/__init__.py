@@ -7,10 +7,13 @@ from .host_kernels import (HOST_GATHER, HOST_SCATTER, host_gather_rows, host_sca
                            pinned_empty)
 from .sampling import SampleResult, csr_sample_neighbors
 from .spmm import padded_gather_neighbors, padded_reduce, padded_softmax
-from .spmm_kernels import NEIGHBOR_AGG, NeighborReduce, neighbor_reduce
+from .spmm_kernels import (CSR_SDDMM, CSR_SPMM, NEIGHBOR_AGG, CsrSddmm, CsrSpmm, NeighborReduce,
+                           csr_sddmm, csr_spmm, neighbor_reduce, sddmm_window, spmm_window,
+                           transpose_csr)
 
 # every hand-written kernel of the port, one per C entry point
-KERNELS = (ROW_GATHER, ROW_SCATTER, SAMPLE_COLS, NEIGHBOR_AGG, HOST_GATHER, HOST_SCATTER)
+KERNELS = (ROW_GATHER, ROW_SCATTER, SAMPLE_COLS, NEIGHBOR_AGG, HOST_GATHER, HOST_SCATTER,
+           CSR_SPMM, CSR_SDDMM)
 
 __all__ = [
     "KERNELS",
@@ -32,4 +35,11 @@ __all__ = [
     "padded_softmax",
     "NeighborReduce",
     "neighbor_reduce",
+    "CsrSpmm",
+    "CsrSddmm",
+    "csr_spmm",
+    "csr_sddmm",
+    "transpose_csr",
+    "spmm_window",
+    "sddmm_window",
 ]
