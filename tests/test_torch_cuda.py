@@ -1,13 +1,15 @@
-"""Kernels A-H on the card against their plain PyTorch versions, one tiny
+"""Kernels A-J on the card against their plain PyTorch versions, one tiny
 training step on the card against the same step on the CPU, the same for
-the host-memory tier (kernels E and F on pinned host tables), and tiny
-full-graph models (kernels G and H) on the card against the CPU.
+the host-memory tier (kernels E and F on pinned host tables), tiny
+full-graph models (kernels G and H), and the sharded row store (kernels I
+and J, and B's masked route) on the card against the CPU.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so without a card every test
 here skips. On a machine with an H100 run them with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
 
-Tolerances: A, B, C, E and F move bits and must be exact. D and G sum up to
+Tolerances: A, B, C, E, F, I and J move bits and must be exact, NaN
+payloads and -0 included. D and G sum up to
 K f32 values in another order than their plain versions: K f32 ulps of the
 largest output (K the longest row), plus one bf16 ulp when the output is
 rounded to bf16. H's dot of D products: D f32 ulps of the largest value."""
@@ -409,3 +411,149 @@ def test_full_graph_models_on_card_match_cpu(dev):
         torch.testing.assert_close(dxa.cpu(), dxb, rtol=1e-5, atol=1e-5)
         for k in gb:
             torch.testing.assert_close(ga[k].cpu(), gb[k], rtol=1e-4, atol=1e-5, msg=k)
+
+
+# ---------------------------------------------------------------------------
+# kernels I and J, and B's masked route: the sharded row store
+# ---------------------------------------------------------------------------
+
+
+def _store_slots(case, n, B, id_dtype):
+    """Slots of one pattern: sorted and dense, shuffled, duplicated, or
+    sorted with ids outside ``[0, n)`` at both ends."""
+    g = _gen(B + n)
+    if case == "sorted":
+        base = int(torch.randint(0, n - (5 * B) // 4, (1,), generator=g))
+        s = torch.sort(base + torch.randperm((5 * B) // 4, generator=g)[:B]).values
+    elif case == "unsorted":
+        s = torch.randint(0, n, (B,), generator=g)
+    elif case == "duplicates":
+        s = torch.sort(torch.randint(n // 3, n // 3 + B // 4, (B,), generator=g)).values
+    else:
+        s = torch.sort(torch.randint(-40, n + 40, (B,), generator=g)).values
+        s[:3], s[-3:] = torch.tensor([-(2**31) + 5, -1, 0]), torch.tensor([n - 1, n, n + 7])
+    return s.to(id_dtype)
+
+
+def _bits(t):
+    """The tensor's bits, so NaN payloads and -0 compare exactly."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _store_table(n, D, dtype, seed=0):
+    """Random rows with NaN payloads, infinities, -0 and denormals among them."""
+    t = torch.randn(n, D, generator=_gen(seed)).to(dtype)
+    bits = _bits(t)
+    bits[1::97, 0] = 0x7FC0_1234 if dtype == torch.float32 else 0x7FC3
+    bits[2::89, -1] = -(2**31) if dtype == torch.float32 else -(2**15)  # -0.0
+    bits[3::83, 0] = 7  # a denormal
+    t[5::101, -1] = float("inf")
+    return t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 16, 3])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "duplicates", "out_of_range"])
+def test_sorted_gather_matches_plain(dev, dtype, D, id_dtype, case):
+    n, B = 6000, 3001  # the last tile is partial whatever the plan
+    table = _store_table(n, D, dtype)
+    slots = _store_slots(case, n, B, id_dtype)
+    on_card, s_card = table.to(dev), slots.to(dev)
+    for zero_invalid, plain in ((False, G.gather_rows_plain), (True, G.gather_rows_masked_plain)):
+        before = G.SORTED_GATHER.launches
+        out = G.gather_rows_sorted(on_card, s_card, zero_invalid=zero_invalid, density=0.8)
+        assert G.SORTED_GATHER.launches == before + 1
+        assert out.dtype == dtype and torch.equal(_bits(out.cpu()), _bits(plain(table, slots)))
+
+
+@pytest.mark.parametrize("tile,window", [(32, 0), (32, 40), (64, 8), (1, 1), (1024, 2000),
+                                         (100, 150)])
+def test_sorted_gather_any_plan(dev, tile, window):
+    """Exact whatever the tile and window: a window of 0 reads every row
+    directly, one smaller than a tile's span does so for that tile, a
+    window larger than the table is never filled past its last row."""
+    table = _store_table(1500, 40, torch.float32, seed=1)
+    slots = _store_slots("sorted", 1500, 1000, torch.int32)
+    slots[500:520] = torch.randint(0, 1500, (20,), generator=_gen(3), dtype=torch.int32)
+    out = G.gather_rows_sorted(table.to(dev), slots.to(dev), tile=tile, window=window)
+    assert torch.equal(_bits(out.cpu()), _bits(G.gather_rows_plain(table, slots)))
+
+
+def test_sorted_gather_wide_window_above_48kb(dev):
+    """A window above 48 KB of shared memory (the default limit) launches."""
+    table = _store_table(4000, 256, torch.float32, seed=2)
+    slots = _store_slots("sorted", 4000, 2048, torch.int64)
+    tile, window = G.sorted_plan(1024, density=0.2)
+    assert window * 1024 > 48 * 1024
+    out = G.gather_rows_sorted(table.to(dev), slots.to(dev), density=0.2)
+    assert torch.equal(_bits(out.cpu()), _bits(G.gather_rows_plain(table, slots)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 16, 3])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_masked_gather_matches_plain(dev, dtype, D, id_dtype):
+    table = _store_table(700, D, dtype)
+    slots = _store_slots("out_of_range", 700, 2500, id_dtype)[torch.randperm(2500, generator=_gen(4))]
+    before = G.ROW_GATHER_MASKED.launches
+    out = G.gather_rows_masked(table.to(dev), slots.to(dev)).cpu()
+    assert G.ROW_GATHER_MASKED.launches == before + 1
+    assert torch.equal(_bits(out), _bits(G.gather_rows_masked_plain(table, slots)))
+    assert not out[(slots < 0) | (slots >= 700)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 16, 3])
+def test_masked_scatter_matches_plain(dev, dtype, D):
+    table = _store_table(600, D, dtype)
+    slots = torch.randperm(700, generator=_gen(5))[:400].to(torch.int32) - 50  # -50..649
+    rows = _store_table(400, D, dtype, seed=6)
+    on_card = table.to(dev)
+    before, masked = G.ROW_SCATTER.launches, G.ROW_SCATTER.routes.get("masked", 0)
+    assert G.scatter_rows_masked(on_card, slots.to(dev), rows.to(dev)) is on_card
+    assert G.ROW_SCATTER.launches == before + 1
+    assert G.ROW_SCATTER.routes["masked"] == masked + 1
+    assert torch.equal(_bits(on_card.cpu()),
+                       _bits(G.scatter_rows_plain(table.clone(), slots, rows)))
+
+
+def test_store_kernels_empty_batches(dev):
+    table = torch.randn(50, 8, device=dev)
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = {k.name: k.launches for k in (G.SORTED_GATHER, G.ROW_GATHER_MASKED, G.ROW_SCATTER)}
+    assert G.gather_rows_sorted(table, none).shape == (0, 8)
+    assert G.gather_rows_masked(table, none).shape == (0, 8)
+    assert G.scatter_rows_masked(table, none, torch.zeros(0, 8, device=dev)) is table
+    assert not G.gather_rows_masked(table[:0], torch.arange(4, device=dev)).any()
+    assert before == {k.name: k.launches for k in (G.SORTED_GATHER, G.ROW_GATHER_MASKED,
+                                                   G.ROW_SCATTER)}
+
+
+def test_store_on_card_matches_cpu(dev):
+    """ShardedTable on the card and on the CPU from the same numpy data:
+    gather on both routes, its gradient, scatter as a set and as an add."""
+    rs = np.random.RandomState(9)
+    arr = rs.randn(300, 24).astype(np.float32)
+    ids = np.sort(rs.randint(-5, 305, 700)).astype(np.int32)
+    rows = rs.randn(700, 24).astype(np.float32)
+    uniq = np.where(np.arange(700) < 280, rs.permutation(700)[:700] - 200, -1).astype(np.int32)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        t = wt.ShardedTable.from_array(arr, device=d)
+        i = torch.from_numpy(ids).to(d)
+        out = [t.gather(i, local_kernel=lk) for lk in ("ring", "sorted")]
+        data = t.data.clone().requires_grad_()
+        wt.ops.gather.gather(data, i, plan=t.plan, local_kernel="sorted").backward(
+            torch.from_numpy(rows).to(d))
+        r = torch.from_numpy(rows).to(d)
+        setv = t.scatter(torch.from_numpy(uniq).to(d), r).to_array()
+        setv = np.concatenate([setv, t.scatter(i, r).to_array()])  # duplicates: the last row
+        addv = t.scatter(i, r, accumulate=True).to_array()
+        res.append([o.cpu() for o in out] + [data.grad.cpu(), torch.from_numpy(setv),
+                                             torch.from_numpy(addv)])
+    for k, (a, b) in enumerate(zip(*res)):
+        if k < 2 or k == 3:  # gathers and the set move bits
+            assert torch.equal(a, b)
+        else:  # sums of duplicates in another order
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

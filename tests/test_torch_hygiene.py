@@ -64,7 +64,9 @@ def no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["embedding", "graph", "model", "build_synthetic",
                                    "host_embedding", "build_synthetic_host_tier",
-                                   "clustered_csr", "gat_model", "build_full_graph"])
+                                   "clustered_csr", "gat_model", "build_full_graph",
+                                   "sharded_table", "sharded_table_from_array",
+                                   "sharded_table_host"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     calls = {
         "embedding": lambda: Embedding.create(10, 4),
@@ -77,6 +79,9 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
         "clustered_csr": lambda: wt.clustered_csr(10, 4, 4),
         "gat_model": lambda: HomoGNN(8, 8, 2, model_type="gat", num_heads=2),
         "build_full_graph": lambda: wt.build_full_graph(wt.FullGraphConfig(n_nodes=10)),
+        "sharded_table": lambda: wt.ShardedTable.create(10, 4),
+        "sharded_table_from_array": lambda: wt.ShardedTable.from_array(np.zeros((10, 4))),
+        "sharded_table_host": lambda: wt.ShardedTable.create(10, 4, location="host"),
     }
     with pytest.raises(CudaError, match="CUDA is not available"):
         calls[entry]()
@@ -105,8 +110,20 @@ def test_kernels_import_and_cpu_path_build_nothing(monkeypatch):
         assert np.isfinite(float(loss)) and torch.isfinite(dx).all()
         assert np.isfinite(float(wt.eval_full_graph(fs.model, fs.embedding, fs.fg, c,
                                                     fs.labels[:4])[0]))
+    # the sharded store: both gather routes, their gradient, set and add (kernels I, J, B)
+    table = wt.ShardedTable.create(30, 4, init=lambda g, shape, dt: torch.randn(shape, generator=g),
+                                   device="cpu")
+    ids = torch.tensor([3, 1, 29, 30, -1], dtype=torch.int32)
+    for lk in ("ring", "sorted"):
+        data = table.data.clone().requires_grad_()
+        wt.ops.gather.gather(data, ids, plan=table.plan, local_kernel=lk).sum().backward()
+        assert data.grad.sum() == 12.0
+    table = table.scatter(ids, torch.ones(5, 4)).scatter(ids, torch.ones(5, 4), accumulate=True,
+                                                          donate=True)
+    assert torch.equal(table.gather(ids[:3]), torch.full((3, 4), 2.0))
+    assert torch.equal(wt.ops.local_take_sorted(table.data, ids)[3:], table.data[[29, 0]])
     assert not kernels._libs
-    assert all(k.launches == 0 for k in KERNELS)
+    assert all(k.launches == 0 and not k.routes for k in KERNELS)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -143,6 +160,14 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
         S.csr_sddmm(row_ptr.to("meta"), col.to("meta"), meta[:4], meta)
     with pytest.raises(CudaError):
         H.host_scatter_rows(torch.zeros(16, 8), ids, torch.zeros(4, 8, device="meta"))
+    # the store's kernels: I, J and B's masked route
+    for fn in (G.gather_rows_sorted, G.gather_rows_masked):
+        with pytest.raises(CudaError):
+            fn(meta, ids)
+        with pytest.raises(CudaError):
+            fn(torch.zeros(16, 8), ids)
+    with pytest.raises(CudaError):
+        G.scatter_rows_masked(torch.zeros(16, 8), ids, torch.zeros(4, 8, device="meta"))
 
 
 def test_library_path_tracks_the_source(tmp_path, monkeypatch):

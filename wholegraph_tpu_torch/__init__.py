@@ -12,12 +12,15 @@ second puts its embedding in the host-memory tier
 (:class:`.embedding.HostEmbedding`: the table and optimizer state in pinned
 host memory behind a cache of hot rows on the card); the third is
 full-graph message passing (:mod:`.full_graph`: SAGE, GCN and GAT over a
-:class:`.models.FullGraph`, forward and backward).
+:class:`.models.FullGraph`, forward and backward); the fourth is the sharded
+row store on one card (:class:`.memory.ShardedTable` with its
+:class:`.memory.PartitionPlan`).
 """
 
-from . import embedding, full_graph, graph, kernels, models, ops, utils
+from . import embedding, full_graph, graph, kernels, memory, models, ops, utils
 from .full_graph import (FullGraphConfig, build_full_graph, clustered_csr, eval_full_graph,
                          full_graph_value_and_grad)
+from .memory import PartitionPlan, ShardedTable
 from .train import SageTrainConfig, SageTrainState, build_synthetic, train_step
 
 __version__ = "0.1.0"
@@ -27,6 +30,7 @@ __all__ = [
     "full_graph",
     "graph",
     "kernels",
+    "memory",
     "models",
     "ops",
     "utils",
@@ -39,4 +43,6 @@ __all__ = [
     "clustered_csr",
     "eval_full_graph",
     "full_graph_value_and_grad",
+    "PartitionPlan",
+    "ShardedTable",
 ]

@@ -1,6 +1,7 @@
 // Kernel B: row scatter, table[ids[i]] = rows[i] in place, for ids in
-// [0, n_rows); other ids are skipped. With duplicate ids the winner is
-// unspecified, as on the TPU.
+// [0, n_rows); other ids are skipped. Ids in range must be unique: rows aimed
+// at one id are written by different warps at once and may interleave vector
+// by vector (the store's scatter keeps one writer per id first).
 //
 // Replaces the TPU's `_scatter_kernel` (wholegraph_tpu/ops/gather_pallas.py:102,
 // launched from `scatter_rows_pallas3`). The TPU wrote every slot, sending

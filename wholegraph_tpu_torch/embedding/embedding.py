@@ -27,6 +27,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from ..memory import PartitionPlan, ShardedTable
+from ..ops.gather import local_take_sorted
 from ..ops.gather_kernels import gather_rows, scatter_rows
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.dtypes import as_torch_dtype
@@ -117,10 +119,20 @@ class Embedding:
 
     # -- forward --------------------------------------------------------------
 
-    def gather(self, ids: torch.Tensor) -> torch.Tensor:
+    def gather(self, ids: torch.Tensor, *, local_kernel: str = "ring") -> torch.Tensor:
         """Rows at ``ids`` (clip semantics, as the JAX package's one-device
-        gather); kernel A on CUDA."""
+        gather): kernel A on CUDA, or with ``local_kernel="sorted"`` kernel I
+        (:func:`~wholegraph_tpu_torch.ops.local_take_sorted`, fastest for
+        sorted, dense ids)."""
+        check_input(local_kernel in ("ring", "sorted"), f"unknown local_kernel {local_kernel!r}")
+        if local_kernel == "sorted":
+            return local_take_sorted(self.table, ids)
         return gather_rows(self.table, ids)
+
+    def as_sharded_table(self) -> ShardedTable:
+        """The table as a one-shard :class:`ShardedTable` sharing its memory
+        (a view for reads: a donated scatter into it writes this table)."""
+        return ShardedTable(self.table, PartitionPlan.equal(self.n, 1), "device", self.device)
 
     # -- backward / optimizer -------------------------------------------------
 

@@ -128,7 +128,7 @@ class Kernel:
     callers reset it (``k.launches = 0``) and read it back to show a path
     went through the kernel. ``routes`` splits the count by the label a
     wrapper passes as ``route=`` (kernel G: ``"forward"`` and
-    ``"transposed"``)."""
+    ``"transposed"``; kernel B: ``"masked"`` for the store's writes)."""
 
     def __init__(self, name: str, source: str, entry: str, argtypes: Sequence,
                  replaces: str):
