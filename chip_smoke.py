@@ -31,11 +31,14 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
 7. the host gather: a 4,000,000 x 256 f32 pinned table behind an empty
    cache, batch 524,288, uniform ids and ids clustered in a span of
    1.25 x batch rows; kernel E bit-equal to its plain version, its rate
-   against the link's, and the library routes (a CPU ``index_select`` into
-   pinned staging and a copy; a span ``copy_`` and a take on the card);
+   against the link's, the bytes it read across the link (E's own count)
+   and its sort's share, and the library routes (a CPU
+   ``index_select`` into pinned staging and a copy; a span ``copy_`` and a
+   take on the card);
 8. the host-tier path: ``SageTrainConfig()`` with ``cache_ratio=0.25`` and
    the top-degree rows cached; one captured step whose every E and F call is
-   held against its plain version (F by its written rows and a sample of
+   held against its plain version (E with the link bytes it read; F by its
+   written rows and a sample of
    untouched rows), and so is every A and B call on the cache's lines; then
    HOST_STEPS timed steps with the stage split, the
    cache hit fraction, peak device memory and pinned bytes, failing if any
@@ -47,8 +50,12 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    launch held against its plain version and dx against an ``index_add_``
    scatter; times beside the bound, the plain version and cuSPARSE
    (``torch.sparse.mm``);
-10. ``[fg_sddmm]``: kernel H at ``bench_sddmm_clustered``'s shapes against
-    its plain version, beside cuSPARSE ``sampled_addmm``;
+10. ``[fg_sddmm]``: kernel H at ``bench_sddmm_clustered``'s shapes, and on
+    the same degrees with uniform columns (no tile's window fits), against
+    its plain version (and against itself: two runs bit-identical), beside
+    cuSPARSE ``sampled_addmm``, with H's own counts of the tiles it staged,
+    the bytes it staged in shared memory and the edges it read from device
+    memory;
 11. ``[fg_gat]``: the GAT layer at ``bench_gat_layer``'s shapes (2^18 nodes,
     4 heads of 64 over width 256, self loop): one captured forward plus
     backward with the counts from 0, every G and H call held against its
@@ -79,6 +86,13 @@ routes apart, B's masked launches beside its own), the card's name and
 power limit, and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without CUDA it exits non-zero before printing any result.
+
+``python3 chip_smoke.py --sddmm-times`` only builds the kernels and times
+kernel H through ``csr_sddmm`` alone (:func:`sddmm_times_only`), so that the
+same function also times another tree's H: run it from that tree's root as
+``python3 -c "import runpy, sys; sys.argv = ['chip_smoke.py', '--sddmm-times'];
+runpy.run_path('<path of this file>', run_name='__main__')"``, which imports
+that tree's package.
 """
 
 import contextlib
@@ -334,12 +348,15 @@ def check_neighbor_agg(calls):
     return errs, times
 
 
-def time_host_gather(case, table, slots, link):
-    """Kernel E on one call: times beside its bound at the link's peak and
-    the measured ``copy_`` rate, and the library route a caller without E
-    would take: a CPU
-    ``index_select`` of the valid rows into pinned staging, then a
-    non-blocking copy to the card (the ids sit on the CPU beforehand)."""
+def time_host_gather(case, table, slots, link, kw=None):
+    """Kernel E on one call (``host_gather_rows(table, slots, **kw)``, the
+    sort of its plan included): times beside its bound at the link's peak
+    and the measured ``copy_`` rate, the bytes E moves across the link (each
+    distinct valid row once), the plan's sort alone, and the library route a
+    caller without E would take: a CPU ``index_select`` of the valid rows
+    into pinned staging, then a non-blocking copy to the card (the ids sit
+    on the CPU beforehand)."""
+    kw = kw or {}
     rb = table.shape[1] * table.element_size()
     valid = (slots >= 0) & (slots < table.shape[0])
     vids = slots[valid].long().cpu()
@@ -351,11 +368,16 @@ def time_host_gather(case, table, slots, link):
         dst.copy_(staging, non_blocking=True)
 
     uniq = torch.unique(vids).numel()
-    t = timings(case, lambda: H.host_gather_rows(table, slots),
+    t = timings(case, lambda: H.host_gather_rows(table, slots, **kw),
                 lambda: H.host_gather_rows_plain(table, slots), library,
                 link_bound_ms(uniq * rb, slots.numel() * (4 + rb)),
                 iters=10, plain_iters=2)
-    t.update(rows=slots.numel(), valid_rows=vids.numel(), unique_rows=uniq)
+    read = torch.zeros(1, dtype=torch.int64, device=slots.device)
+    H.host_gather_rows(table, slots, **kw, _stats=read)  # E counts the bytes it reads
+    t.update(rows=slots.numel(), valid_rows=vids.numel(), unique_rows=uniq,
+             link_bytes_read=int(read.item()), link_bytes_asked=vids.numel() * rb,
+             plan_ms=cuda_ms(lambda: H.host_gather_plan(slots, table.shape[0]), 10)
+             if kw.get("_sort", True) else 0.0)
     return link_yardsticks(t, uniq * rb, vids.numel() * rb, link["h2d_GBps"])
 
 
@@ -560,19 +582,19 @@ def host_gather_phase(link):
         calls = []
         torch.cuda.synchronize()
         reset_launches()
-        with capture(host_mod, "host_gather_rows", calls):
+        with capture_kw(host_mod, "host_gather_rows", calls):
             rows = emb.gather(ids)
             torch.cuda.synchronize()
         launches = {k: v for k, v in read_launches().items() if v}
         require(launches.get("host_gather", 0) > 0 and launches.get("row_gather", 0) > 0,
                 f"host gather ({regime}) did not launch kernels E and A: {launches}")
-        table, slots = calls[0]
+        (table, slots), kw = calls[0]
         ref = H.host_gather_rows_plain(table, slots)
-        err = max_err(H.host_gather_rows(table, slots), ref)
+        err = max_err(H.host_gather_rows(table, slots, **kw), ref)
         require(err == 0.0 and torch.equal(rows, ref),
                 f"host_gather ({regime}) differs from its plain version: {err}")
         errs.append({"case": f"bench {regime}", "max_abs_err": err, "tol": 0.0})
-        t = time_host_gather(f"bench {regime} [{batch}] of [{n}, {dim}]", table, slots, link)
+        t = time_host_gather(f"bench {regime} [{batch}] of [{n}, {dim}]", table, slots, link, kw)
         t.update(regime=regime, launches=launches, gather_ms=cuda_ms(lambda: emb.gather(ids), 10))
         rb = dim * 4
         if regime == "clustered":  # row 10's yardstick: the span's copy_, then a take
@@ -594,7 +616,9 @@ def host_gather_phase(link):
             f"GB/s copy_; whole gather {t['gather_ms']} ms; bound {t['bound_ms']} ms (at the "
             f"copy_ rate {t['copy_ms']} ms); plain {t['plain_ms']} ms; library {t['library_ms']} ms"
             + (f" (CPU route {t['library_cpu_ms']} ms)" if "library_cpu_ms" in t else "")
-            + f"; {t['unique_rows']} unique rows; launches {launches}")
+            + f"; {t['unique_rows']} unique rows: E read {t['link_bytes_read']} bytes across the "
+            f"link ({t['link_bytes_asked']} asked for), its sort {t['plan_ms']} ms of it; "
+            f"launches {launches}")
         out.append(t)
         del calls, table, slots, rows, ref
     del emb, regimes
@@ -607,14 +631,18 @@ def check_host_steps(emb, calls_e, calls_f, snap, sample, link):
     version; F by its written rows and a sample of untouched rows."""
     errs, times = {"E": [], "F": []}, {"E": [], "F": []}
     torch.cuda.synchronize()
-    for i, (table, slots) in enumerate(calls_e):
-        err = max_err(H.host_gather_rows(table, slots), H.host_gather_rows_plain(table, slots))
+    for i, ((table, slots), kw) in enumerate(calls_e):
+        err = max_err(H.host_gather_rows(table, slots, **kw),
+                      H.host_gather_rows_plain(table, slots))
         require(err == 0.0, f"host_gather step call{i} differs from its plain version: {err}")
         regime = "step gather (misses)" if i == 0 else "step apply (sorted unique slots)"
         errs["E"].append({"case": f"step call{i}", "max_abs_err": err, "tol": 0.0})
         t = time_host_gather(f"step call{i} [{slots.numel()}] of {list(table.shape)}",
-                             table, slots, link)
+                             table, slots, link, kw)
         t["regime"] = regime
+        log(f"[check] host_gather step call{i} ({regime}): E {t['ms']} ms, read "
+            f"{t['link_bytes_read']} bytes across the link ({t['unique_rows']} distinct rows, "
+            f"{t['link_bytes_asked']} bytes asked for), sort {t['plan_ms']} ms")
         times["E"].append(t)
     names = {id(emb.host_table): "table", **{id(t): s for s, t in emb.host_slots.items()}}
     for i, (table, slots, rows) in enumerate(calls_f):
@@ -678,7 +706,7 @@ def host_tier_phase(cfg, link):
             capture(host_mod, "scatter_rows", calls["B"]), \
             capture(sampling_mod, "sample_cols", calls["C"]), \
             capture(S, "neighbor_reduce", calls["D"]), \
-            capture(host_mod, "host_gather_rows", calls["E"]), \
+            capture_kw(host_mod, "host_gather_rows", calls["E"]), \
             capture(host_mod, "host_scatter_rows", calls["F"]):
         c, y = batch()
         loss0 = float(wt.train_step(state, c, y, seed=0))
@@ -691,7 +719,7 @@ def host_tier_phase(cfg, link):
     ml = state.graph.multilayer_sample(c, cfg.fanouts, seed=0)
     ids = ml.unique_gids[ml.unique_mask]
     hit = emb.cache_hit_fraction(ids)
-    misses = int(((calls["E"][0][1] >= 0)).sum())
+    misses = int(((calls["E"][0][0][1] >= 0)).sum())
     log(f"[host_tier] captured step: calls {per_step}, loss {loss0:.5f}, {ids.numel()} unique "
         f"rows, cache hit fraction {hit}, {misses} rows fetched from the host")
     errs, times = check_host_steps(emb, calls["E"], calls["F"], snap, sample, link)
@@ -805,18 +833,35 @@ def sddmm_times(case, args, library, iters=20, plain_iters=3):
     tol = h_tol(ref, a.shape[1])
     err = max_err(S.csr_sddmm(*args), ref)
     require(err <= tol, f"csr_sddmm {case} err {err} > tol {tol}")
+    require(torch.equal(S.csr_sddmm(*args), S.csr_sddmm(*args)),
+            f"csr_sddmm {case}: two runs differ")
     E, D, es = col.numel(), a.shape[1], a.element_size()
     a_rows = int(((row_ptr[1:] - row_ptr[:-1]) > 0).sum())
     b_rows = torch.unique(col).numel()
     nbytes = (a_rows + b_rows) * D * es + 4 * E + 4 * row_ptr.numel() + 4 * E
     b_ms, by = bound_ms(nbytes, 2.0 * E * D)
+    # H's own counts: the tiles it staged in shared memory and the bytes of
+    # b[lo..hi] and a it staged there, the tiles and edges it read from
+    # device memory
+    stats = torch.zeros(4, dtype=torch.int64, device=a.device)
+    S.csr_sddmm(*args, _stats=stats)
+    staged, staged_bytes, dev_tiles, dev_edges = stats.tolist()
     t = {"case": case, "ms": cuda_ms(lambda: S.csr_sddmm(*args), iters),
          "plain_ms": cuda_ms(lambda: S.csr_sddmm_plain(*args), plain_iters, warmup=1),
          "library_ms": cuda_ms(library, iters), "bound_ms": b_ms, "bound_by": by,
-         "edges": E, "dim": D}
+         "edges": E, "dim": D, "tiles_staged": staged, "staged_bytes": staged_bytes,
+         "tiles_from_device_memory": dev_tiles, "edges_from_device_memory": dev_edges,
+         "per_edge_row_bytes": E * D * es}
     t["Medges_per_s"] = E / t["ms"] / 1e3
     t["bound_share"] = b_ms / t["ms"]
     return {"case": case, "max_abs_err": err, "tol": tol}, t
+
+
+def fmt_staged(t):
+    return (f"H counted {t['tiles_staged']} tiles staging {t['staged_bytes']} bytes in shared "
+            f"memory ({t['per_edge_row_bytes']} bytes of b rows if read per edge) and "
+            f"{t['tiles_from_device_memory']} tiles ({t['edges_from_device_memory']} edges) "
+            f"reading device memory; two runs bit-identical")
 
 
 def fmt_times(t):
@@ -898,25 +943,62 @@ def fg_spmm_phase(g, fg):
     return (errs, times), ([e_t, e_dx], [t_t]), fb
 
 
+def random_cols(row_ptr, n_src, gen):
+    """Uniform columns in [0, n_src) for the CSR's rows, sorted within each
+    row: a graph with the bench graph's degrees and no locality."""
+    E = int(row_ptr[-1])
+    col = torch.randint(0, n_src, (E,), generator=gen, device=row_ptr.device)
+    key = S.csr_edge_dst(row_ptr, E).long() * n_src + col
+    return (key.sort().values % n_src).to(torch.int32)
+
+
 def fg_sddmm_phase(g):
-    """Kernel H at bench_sddmm_clustered's shapes (a, b [2^20, 256] f32)."""
+    """Kernel H at bench_sddmm_clustered's shapes (a, b [2^20, 256] f32), on
+    the bench graph and on its degrees with uniform columns."""
     n, dim = g.node_count, 256
     rp, col = g.row_ptr, g.col
     gen = torch.Generator(device="cuda")
     gen.manual_seed(22)
     a = torch.randn(n, dim, generator=gen, device="cuda")
     b = torch.randn(n, dim, generator=gen, device="cuda")
-    pattern = sparse_csr(rp, col, torch.ones(g.edge_count, device="cuda"), n)
-    e, t = sddmm_times(f"bench [{n}, {dim}] f32", (rp, col, a, b),
-                       lambda: torch.sparse.sampled_addmm(pattern, a, b.t(), beta=0.0))
-    lib_err = max_err(torch.sparse.sampled_addmm(pattern, a, b.t(), beta=0.0).values(),
-                      S.csr_sddmm(rp, col, a, b))
-    t["library_max_abs_err"] = lib_err
-    log(f"[fg_sddmm] H: " + fmt_times(t) + f"; err {e['max_abs_err']} (tol {e['tol']}); "
-        f"cuSPARSE sampled_addmm differs from H by {lib_err}")
-    del a, b, pattern
+    errs, times = [], []
+    for name, cols in (("bench", col), ("random", random_cols(rp, n, gen))):
+        pattern = sparse_csr(rp, cols, torch.ones(g.edge_count, device="cuda"), n)
+        e, t = sddmm_times(f"{name} [{n}, {dim}] f32", (rp, cols, a, b),
+                           lambda: torch.sparse.sampled_addmm(pattern, a, b.t(), beta=0.0))
+        lib_err = max_err(torch.sparse.sampled_addmm(pattern, a, b.t(), beta=0.0).values(),
+                          S.csr_sddmm(rp, cols, a, b))
+        t["library_max_abs_err"] = lib_err
+        log(f"[fg_sddmm] H {name}: " + fmt_times(t) + f"; err {e['max_abs_err']} (tol "
+            f"{e['tol']}); cuSPARSE sampled_addmm differs from H by {lib_err}; " + fmt_staged(t))
+        errs.append(e)
+        times.append(t)
+        del pattern, cols
+    del a, b
     torch.cuda.empty_cache()
-    return [e], [t]
+    return errs, times
+
+
+def sddmm_times_only():
+    """Kernel H through ``csr_sddmm`` alone, which every tree of the port
+    has: on the bench graph (``clustered_csr(2^20, 16, 192)``) and on its
+    degrees with uniform columns, at D = 256 f32 and at GAT's head width
+    (D = 64 views of a [2^20, 4, 64] tensor, row stride 256). One JSON line
+    of ms by CUDA events, 20 calls each."""
+    secs = kernels.build_all()
+    g = wt.clustered_csr(1 << 20, 16, 192)
+    n, rp = g.node_count, g.row_ptr
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    a = torch.randn(n, 256, generator=gen, device="cuda")
+    b = torch.randn(n, 256, generator=gen, device="cuda")
+    ha, hb = a.view(n, 4, 64)[:, 1, :], b.view(n, 4, 64)[:, 2, :]
+    out = {"build_s": sum(secs.values())}
+    for name, cols in (("clustered", g.col), ("random", random_cols(rp, n, gen))):
+        for dim, x, y in ((256, a, b), (64, ha, hb)):
+            S.csr_sddmm(rp, cols, x, y)
+            out[f"{name}_D{dim}_ms"] = cuda_ms(lambda: S.csr_sddmm(rp, cols, x, y))
+    log("[sddmm_times] " + json.dumps(out))
 
 
 def init_gat(layer, gen):
@@ -1014,7 +1096,8 @@ def fg_gat_phase():
     for route in errs:
         log(f"[fg_gat] {route}: " + json.dumps(errs[route]))
         for t in times[route]:
-            log(f"[fg_gat]   {t['case']}: " + fmt_times(t))
+            log(f"[fg_gat]   {t['case']}: " + fmt_times(t)
+                + ("; " + fmt_staged(t) if route == "sddmm" else ""))
 
     def fwd():
         with torch.no_grad():
@@ -1596,4 +1679,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--sddmm-times"]:
+        sddmm_times_only()
+    else:
+        main()

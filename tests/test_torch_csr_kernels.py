@@ -172,6 +172,38 @@ def test_csr_sddmm_autograd_matches_numpy():
     np.testing.assert_allclose(tb.grad.numpy(), db, **TOL)
 
 
+def _clustered(seed, n=700, width=96, long_row=None):
+    rs = np.random.RandomState(seed)
+    deg = rs.randint(0, 20, n)
+    deg[[0, 9, n - 1]] = 0
+    if long_row:
+        deg[300] = long_row
+    rp = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    dst = np.repeat(np.arange(n), deg)
+    col = np.clip(dst + rs.randint(-width, width + 1, len(dst)), 0, n - 1).astype(np.int32)
+    return rs, rp, col
+
+
+@pytest.mark.parametrize("graph", ["clustered", "long_row", "random"])
+def test_csr_sddmm_stats_are_inert_on_the_cpu(graph):
+    """On the CPU, ``csr_sddmm`` with the internal ``_stats`` runs the plain
+    version: the dots of a float64 numpy loop, and the counts untouched
+    (only the kernel adds to them)."""
+    if graph == "random":
+        rs, rp, col = _csr(seed=9, n=400, n_src=400, hi=12)
+    else:
+        rs, rp, col = _clustered(10, long_row=2000 if graph == "long_row" else None)
+    n, D = len(rp) - 1, 7
+    a = rs.randn(n, D).astype(np.float32)
+    b = rs.randn(n, D).astype(np.float32)
+    stats = torch.full((4,), 5, dtype=torch.int64)
+    out = K.csr_sddmm(_t(rp), _t(col), _t(a), _t(b), _stats=stats)
+    dst = np.repeat(np.arange(n), np.diff(rp))
+    ref = (a[dst].astype(np.float64) * b[np.clip(col, 0, n - 1)]).sum(1)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    assert stats.tolist() == [5, 5, 5, 5]
+
+
 def test_wrappers_check_their_inputs():
     _, rp, col = _csr(seed=8)
     x = torch.zeros(40, 4)

@@ -175,19 +175,71 @@ def _pinned(t):
     return p
 
 
+def _host_slots(case, slot_dtype, n=500, B=3000):
+    """Slots of a 3000-slot batch (many of E's tiles) over a 500-row table:
+    uniform with invalid ones, the same sorted, few rows repeated (duplicate
+    runs across tiles), runs of adjacent rows, isolated rows, one row for
+    every slot, and ascending valid slots with a tail of -1 (the apply's)."""
+    g = _gen(13)
+    if case == "uniform":
+        s = torch.randint(-5, n + 5, (B,), generator=g)
+    elif case == "sorted":
+        s = torch.randint(-5, n + 5, (B,), generator=g).sort().values
+    elif case == "duplicates":
+        s = torch.randint(0, 40, (B,), generator=g)
+        s[::97] = -3
+    elif case == "runs":
+        s = (torch.arange(B) % 300 + 100)[torch.randperm(B, generator=g)]
+    elif case == "isolated":  # rows 7 apart, never adjacent
+        s = torch.randint(0, n // 7, (B,), generator=g) * 7
+    elif case == "one_row":
+        s = torch.full((B,), 17)
+    else:  # "ascending": what the apply passes, sorted unique then -1
+        s = torch.full((B,), -1)
+        u = torch.randperm(n, generator=g)[:400].sort().values
+        s[:400] = u
+    return s.to(slot_dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [256, 100, 3])  # 16-, 8- and 4-byte vectors in f32
 @pytest.mark.parametrize("slot_dtype", [torch.int32, torch.int64])
-def test_host_gather_matches_plain(dev, dtype, D, slot_dtype):
+@pytest.mark.parametrize("case", ["uniform", "sorted", "duplicates", "runs", "isolated",
+                                  "one_row", "ascending"])
+def test_host_gather_matches_plain(dev, dtype, D, slot_dtype, case):
     table = _pinned(torch.randn(500, D, generator=_gen(D)).to(dtype))
-    slots = torch.randint(-5, 505, (3000,), generator=_gen(13), dtype=slot_dtype)
+    slots = _host_slots(case, slot_dtype)
     before = H.HOST_GATHER.launches
-    out = H.host_gather_rows(table, slots.to(dev))
+    stats = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = H.host_gather_rows(table, slots.to(dev), _sort=case != "ascending", _stats=stats)
     assert H.HOST_GATHER.launches == before + 1
     assert out.device.type == "cuda" and out.dtype == dtype
     ref = H.host_gather_rows_plain(table, slots)
     assert torch.equal(out.cpu(), ref)
     assert not ref[(slots < 0) | (slots >= 500)].any()
+    # the kernel's own count: each distinct valid row read once
+    valid = slots[(slots >= 0) & (slots < 500)]
+    assert stats.item() == torch.unique(valid).numel() * D * table.element_size()
+
+
+def test_host_gather_unsorted_slots_without_the_sort_stay_exact(dev):
+    """``_sort=False`` only skips the sort: slots in any order give the same
+    rows; E then reads a row again where its slots are not adjacent."""
+    table = _pinned(torch.randn(500, 64, generator=_gen(30)))
+    slots = torch.randint(-5, 505, (3000,), generator=_gen(31), dtype=torch.int32)
+    stats = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = H.host_gather_rows(table, slots.to(dev), _sort=False, _stats=stats)
+    assert torch.equal(out.cpu(), H.host_gather_rows_plain(table, slots))
+    valid = slots[(slots >= 0) & (slots < 500)]
+    assert torch.unique(valid).numel() * 256 < stats.item() <= valid.numel() * 256
+
+
+@pytest.mark.parametrize("D", [1024, 20000])  # 4 KB and 80 KB rows
+def test_host_gather_wide_rows(dev, D):
+    table = _pinned(torch.randn(300, D, generator=_gen(32)))
+    slots = torch.randint(-2, 302, (200,), generator=_gen(33), dtype=torch.int64)
+    out = H.host_gather_rows(table, slots.to(dev))
+    assert torch.equal(out.cpu(), H.host_gather_rows_plain(table, slots))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -245,8 +297,8 @@ def test_host_rows_refuse_memory_that_is_not_pinned(dev):
     out = torch.zeros(4, 8, device=dev)
     before = H.HOST_GATHER.launches
     with pytest.raises(CudaError, match="host_gather"):
-        H.HOST_GATHER(table.data_ptr(), 0, slots.data_ptr(), 0, out.data_ptr(), 50, 4, 32, 16,
-                      kernels.cuda_stream(dev))
+        H.HOST_GATHER(table.data_ptr(), 0, slots.data_ptr(), 0, None, out.data_ptr(), 50, 4, 32,
+                      16, None, kernels.cuda_stream(dev))
     assert H.HOST_GATHER.launches == before
     # ... and the refusal does not linger into the next launch
     assert torch.equal(H.host_gather_rows(_pinned(table), slots).cpu(), table[:4])
@@ -319,23 +371,71 @@ def test_csr_spmm_matches_plain(dev, dtype, D, reduce, weighted):
     assert not out[[0, 5, 899]].any()
 
 
+def _clustered_csr(n=2000, long_row=None, seed=28):
+    """A locality-ordered CSR (each edge of row d to d ± 96, as
+    ``clustered_csr``) with empty rows and, optionally, one row of
+    ``long_row`` edges: kernel H stages every tile's window but that row's."""
+    g = _gen(seed)
+    deg = torch.randint(0, 32, (n,), generator=g)
+    deg[[0, 5, 300, n - 1]] = 0
+    if long_row:
+        deg[700] = long_row
+    row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64), deg.cumsum(0)]).to(torch.int32)
+    dst = torch.repeat_interleave(torch.arange(n), deg)
+    col = (dst + torch.randint(-96, 97, dst.shape, generator=g)).clamp(0, n - 1).to(torch.int32)
+    return row_ptr, col
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [256, 64, 6, 3])
-def test_csr_sddmm_matches_plain(dev, dtype, D):
-    row_ptr, col, _ = _csr(long_row=5000)
-    a = torch.randn(900, D, generator=_gen(24)).to(dtype)
-    b = torch.randn(700, D, generator=_gen(25)).to(dtype)
+@pytest.mark.parametrize("graph", ["random", "clustered", "clustered_long_row"])
+def test_csr_sddmm_matches_plain(dev, dtype, D, graph):
+    """Random columns (no window fits: device-memory tiles, one row of 5000
+    edges), a clustered CSR (every tile staged in shared memory) and the
+    same with a row of 5000 edges (its tile, past the edge cap, reads device
+    memory). Two runs are bit-identical."""
+    if graph == "random":
+        row_ptr, col, _ = _csr(long_row=5000)
+    else:
+        row_ptr, col = _clustered_csr(long_row=5000 if graph == "clustered_long_row" else None)
+    n, n_src = row_ptr.shape[0] - 1, int(col.max()) + 1
+    a = torch.randn(n, D, generator=_gen(24)).to(dtype)
+    b = torch.randn(n_src, D, generator=_gen(25)).to(dtype)
+    args = (row_ptr.to(dev), col.to(dev), a.to(dev), b.to(dev))
     before = S.CSR_SDDMM.launches
-    out = S.csr_sddmm(row_ptr.to(dev), col.to(dev), a.to(dev), b.to(dev)).cpu()
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    out = S.csr_sddmm(*args, _stats=stats)
     assert S.CSR_SDDMM.launches == before + 1 and out.dtype == torch.float32
+    assert torch.equal(out, S.csr_sddmm(*args))
+    # the kernel's own counts: every tile with edges staged or read device
+    # memory; the long row's tile reads device memory, a clustered graph's
+    # others stage, and no window fits the random graph's
+    staged, staged_bytes, from_device, device_edges = stats.tolist()
+    bounds = row_ptr[torch.arange(0, n + S.SDDMM_TILE, S.SDDMM_TILE).clamp(max=n)]
+    tiles = int((bounds[1:] > bounds[:-1]).sum())
+    assert staged + from_device == tiles
+    assert (staged, from_device) == ((tiles, 0) if graph == "clustered" else
+                                     (tiles - 1, 1) if graph == "clustered_long_row" else
+                                     (0, tiles))
+    assert staged_bytes % (D * a.element_size()) == 0 and (staged_bytes > 0) == (staged > 0)
+    if graph == "random":
+        assert device_edges == col.shape[0]
+    else:
+        assert device_edges == 0 if graph == "clustered" else device_edges >= 5000
     ref = S.csr_sddmm_plain(row_ptr, col, a, b)
     # a dot of D products in another order: D f32 ulps of the largest value
-    assert (out - ref).abs().max().item() <= D * F32_EPS * max(1.0, ref.abs().max().item())
+    assert (out.cpu() - ref).abs().max().item() <= D * F32_EPS * max(1.0, ref.abs().max().item())
 
 
-def test_csr_kernels_take_gat_head_views(dev):
-    """D = 64 heads of a [N, 4, 64] tensor, row stride 256, no copy."""
-    row_ptr, col, K = _csr(n=700)
+@pytest.mark.parametrize("graph", ["random", "clustered"])
+def test_csr_kernels_take_gat_head_views(dev, graph):
+    """D = 64 heads of a [N, 4, 64] tensor, row stride 256, no copy; on a
+    clustered CSR H stages the strided head rows in shared memory."""
+    if graph == "random":
+        row_ptr, col, K = _csr(n=700)
+    else:
+        row_ptr, col = _clustered_csr(n=700)
+        K = int((row_ptr[1:] - row_ptr[:-1]).max())
     featv = torch.randn(700, 4, 64, generator=_gen(26))
     alpha = torch.rand(col.shape[0], 4, generator=_gen(27))
     fd, ad = featv.to(dev), alpha.to(dev)
@@ -344,9 +444,13 @@ def test_csr_kernels_take_gat_head_views(dev):
         out = S.csr_spmm(row_ptr.to(dev), col.to(dev), fd[:, h, :], edge_weight=ad[:, h]).cpu()
         ref = S.csr_spmm_plain(row_ptr, col, featv[:, h, :], edge_weight=alpha[:, h])
         assert (out - ref).abs().max().item() <= _g_tol(ref, K, torch.float32)
-        e = S.csr_sddmm(row_ptr.to(dev), col.to(dev), fd[:, h, :], fd[:, (h + 1) % 4, :]).cpu()
+        stats = torch.zeros(4, dtype=torch.int64, device=dev)
+        e = S.csr_sddmm(row_ptr.to(dev), col.to(dev), fd[:, h, :], fd[:, (h + 1) % 4, :],
+                        _stats=stats).cpu()
         eref = S.csr_sddmm_plain(row_ptr, col, featv[:, h, :], featv[:, (h + 1) % 4, :])
         assert (e - eref).abs().max().item() <= 64 * F32_EPS * max(1.0, eref.abs().max().item())
+        staged, _, from_device, _ = stats.tolist()
+        assert (from_device == 0 and staged > 0) if graph == "clustered" else staged == 0
 
 
 def test_csr_spmm_autograd_on_card_matches_cpu(dev):

@@ -119,6 +119,50 @@ def test_dispatch_never_falls_back_off_the_cpu():
         H.host_scatter_rows(table, meta_slots, torch.ones(4, D, device="meta"))
 
 
+@pytest.mark.parametrize("slot_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["uniform", "duplicates", "one_row", "all_invalid"])
+def test_host_gather_plan_replays_the_plain_gather(slot_dtype, case):
+    """Kernel E's read order: replaying ``out[pos[i]] = table[keys[i]]`` for
+    the valid keys gives the plain gather bit for bit; the keys ascend with
+    the invalid slots last, and ``pos`` is a permutation."""
+    rs = np.random.RandomState(3)
+    table = _table()
+    slots = {"uniform": rs.randint(-4, N + 4, 300), "duplicates": rs.randint(0, 6, 300),
+             "one_row": np.full(300, 7), "all_invalid": rs.randint(N, 2 * N, 300) * -1}[case]
+    slots = torch.from_numpy(slots).to(slot_dtype)
+    keys, pos = H.host_gather_plan(slots, N)
+    assert keys.dtype == torch.int32 and pos.dtype == torch.int64
+    assert (keys[1:] >= keys[:-1]).all()
+    assert torch.equal(pos.sort().values, torch.arange(300))
+    valid = keys < N
+    assert torch.equal(keys[valid], slots[(slots >= 0) & (slots < N)].sort().values.to(torch.int32))
+    assert (keys[~valid] == N).all()
+    out = torch.zeros(300, D)
+    out[pos[valid]] = table[keys[valid].long()]
+    assert torch.equal(out, H.host_gather_rows_plain(table, slots))
+    # each distinct valid row is read once: E's link bytes
+    assert int(valid.sum()) == 0 or torch.unique(keys[valid]).numel() == torch.unique(
+        slots[(slots >= 0) & (slots < N)]).numel()
+
+
+def test_host_gather_plan_keys_widen_for_tables_past_int32():
+    slots = torch.tensor([5, -1, 2**31 + 3, 2**33], dtype=torch.int64)
+    keys, pos = H.host_gather_plan(slots, 2**32)
+    assert keys.dtype == torch.int64
+    assert keys.tolist() == [5, 2**31 + 3, 2**32, 2**32] and pos[:2].tolist() == [0, 2]
+
+
+def test_sorted_flag_is_inert_on_the_cpu():
+    """``_sort=False`` and ``_stats`` change nothing on the CPU: the plain
+    gather, and the count untouched (only kernel E adds to it)."""
+    table = _table()
+    slots = torch.tensor([4, 2, 2, -1, N], dtype=torch.int32)
+    stats = torch.zeros(1, dtype=torch.int64)
+    assert torch.equal(H.host_gather_rows(table, slots, _sort=False, _stats=stats),
+                       H.host_gather_rows_plain(table, slots))
+    assert stats.item() == 0
+
+
 def test_kernels_name_the_tpu_kernels_they_replace():
     assert H.HOST_GATHER.source == H.HOST_SCATTER.source == "host_rows.cu"
     assert H.HOST_GATHER.replaces.endswith("gather_pallas.py:1168,1290")

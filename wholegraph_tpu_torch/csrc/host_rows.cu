@@ -6,12 +6,10 @@
 // (wholegraph_tpu/ops/gather_pallas.py:1168, a DMA ring of 4 KB host pages
 // with slots < 0 skipped) and `_host_window_fetch_kernel` (:1290, the same
 // function for sorted, dense slots: fetch the [min, max] span in large chunks,
-// then take on the device). Both existed because a TPU host DMA moves whole
-// 4 KB pages of a flat memref and each descriptor costs microseconds; the
-// window and span plans (:1337-1377, :1471-1499) amortised that. On Hopper an
-// SM load reaches a mapped pinned page directly at any 16-byte granule, so one
-// kernel covers both regimes; sorted dense slots simply give it runs of
-// adjacent rows.
+// then take on the device). The TPU's window and span plans (:1337-1377,
+// :1471-1499) sorted the slots and read the host table in address order; E
+// keeps that order and drops the span: it reads each distinct row once and
+// nothing between them.
 //
 // F (wg_host_scatter): host[slot[i]] = rows[i] for 0 <= slot[i] < n_rows,
 // other slots skipped. Replaces `_host_put_kernel` (:1183). Non-negative slots
@@ -20,16 +18,42 @@
 // B's (row_scatter.cuh) run on the host table's device address: writes to
 // mapped host memory are posted, so the warp does not wait on the link.
 //
-// Bound: bytes over the host link (PCIe Gen5 x16 on an H100 SXM). E reads
-// each valid row once from the host and writes every out row to HBM; F reads
-// each valid row from HBM and writes it to the host. There is no arithmetic.
+// Bound: bytes over the host link (PCIe Gen5 x16 on an H100 SXM). E must read
+// each distinct valid row once from the host and write every out row to HBM;
+// F reads each valid row from HBM and writes it to the host. No arithmetic.
 //
-// Design of E: kernel A's layout (row_gather.cu) -- one warp per row, lanes
-// across the row in vectors of `vec_bytes`, a grid-stride loop over rows. A
-// host read takes 1-2 us, so every lane first issues all of its loads of a row
-// (up to UNROLL vectors) and only then stores them, and the grid keeps
-// thousands of warps resident: tens of MB in flight, far above the link's
-// rate-times-latency.
+// What holds SM reads of mapped host memory back (measured with
+// tools/host_read_probe.cu on an H100): not the bytes in flight (1, 2 and 4 KB
+// a warp read alike), but the order of the addresses -- the same lane loads
+// read 1 KB rows 1.25x (uniform) to 1.4x (clustered) faster when the slots are
+// sorted -- and rows read again for duplicate slots. Bulk copies
+// (cp.async.bulk) do reach mapped host memory, at a third of the lane loads'
+// rate, and 16-byte cp.async copies into shared memory ran at a fifth of it,
+// so E reads with plain 16-byte lane loads. Staging a tile's rows in shared
+// memory before writing them (a first build) made a CTA wait at a barrier
+// between its reads and its writes, and lost to one warp a slot on slots that
+// were sorted and unique already; E keeps each value in a register instead.
+//
+// Design of E: the wrapper sorts the slots with their output positions on the
+// card (invalid slots as n_rows, last); a caller whose slots need no sort
+// (sorted, or unique in ascending runs) passes them as they are, with no
+// positions. One CTA per tile of TILE sorted slots:
+//  1. Tile t owns the slots from the first row boundary at or after t * TILE
+//     to the first at or after (t + 1) * TILE, where a boundary is a slot that
+//     differs from the one before it, or is invalid. So the duplicates of a
+//     row all belong to one tile, and each distinct row is read once by one
+//     CTA.
+//  2. A scan over the tile splits it into runs: a row's adjacent equal slots,
+//     or one invalid slot.
+//  3. The threads take the runs' vectors flattened over (run, vector), so
+//     adjacent rows are one contiguous, coalesced read and the CTAs walk the
+//     table in address order: each loads its vector once (UNROLL of them in
+//     flight; zero for an invalid slot) and writes it to every output
+//     position of the run.
+// The result does not depend on the order of the slots: unsorted slots only
+// cost more reads. Vectors are 16, 8, 4, 2 or 1 bytes, the widest the row
+// allows. With a `stats` pointer, each CTA adds the bytes it read from the
+// host.
 //
 // Addresses: the caller passes the host allocation's base pointer and the
 // table's byte offset in it; the entry point resolves the base's device
@@ -43,54 +67,134 @@
 
 namespace {
 
-constexpr int UNROLL = 4;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = THREADS;  // slots a CTA: one a thread in the run scan
+constexpr int UNROLL = 4;      // host vectors a thread has in flight
 
 __device__ __forceinline__ int64_t load_slot(const void* slots, int slots64, int64_t i) {
   return slots64 ? static_cast<const int64_t*>(slots)[i]
                  : int64_t(static_cast<const int32_t*>(slots)[i]);
 }
 
-template <typename V>
-__global__ void host_gather_kernel(const V* host, const void* __restrict__ slots,
-                                   int slots64, V* __restrict__ out, int64_t n_rows,
-                                   int64_t n_slots, int64_t vecs_per_row) {
+// True where slot k starts a new group: the first slot, the end, an invalid
+// slot, or a slot unlike the one before it.
+__device__ __forceinline__ bool boundary(const void* slots, int slots64, int64_t k, int64_t n,
+                                         int64_t n_rows) {
+  if (k <= 0 || k >= n) return true;
+  const int64_t s = load_slot(slots, slots64, k);
+  return s < 0 || s >= n_rows || s != load_slot(slots, slots64, k - 1);
+}
+
+// First boundary in [from, limit], by one warp 32 slots at a time; limit if
+// there is none before it.
+__device__ __forceinline__ int64_t next_boundary(const void* slots, int slots64, int64_t from,
+                                                 int64_t limit, int64_t n, int64_t n_rows) {
   const int lane = threadIdx.x & 31;
-  const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t n_warps = (int64_t(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t i = warp; i < n_slots; i += n_warps) {
-    const int64_t slot = load_slot(slots, slots64, i);
-    const bool valid = slot >= 0 && slot < n_rows;
-    const V* src = host + (valid ? slot : 0) * vecs_per_row;
-    V* dst = out + i * vecs_per_row;
-    for (int64_t v0 = lane; v0 < vecs_per_row; v0 += 32 * UNROLL) {
-      V r[UNROLL];
+  for (int64_t p = from; p < limit; p += 32) {
+    const unsigned hit = __ballot_sync(0xffffffffu,
+                                       p + lane < limit && boundary(slots, slots64, p + lane, n, n_rows));
+    if (hit) return p + __ffs(hit) - 1;
+  }
+  return limit;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(THREADS)
+host_gather_kernel(const V* host, const void* __restrict__ slots, int slots64,
+                   const int64_t* __restrict__ pos, V* __restrict__ out, int64_t n_rows,
+                   int64_t n, int vpr, unsigned long long* stats) {
+  __shared__ int64_t run_row[TILE];  // the run's row, -1 for an invalid slot
+  __shared__ int run_first[TILE];    // its first slot, counted from s
+  __shared__ int64_t dst[TILE];      // the output row of each owned slot below t1
+  __shared__ int64_t span[2];
+  __shared__ int warp_total[WARPS];
+
+  // 1. the slots this tile owns: [s, e); those at or past t1 repeat slot t1 - 1
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t t0 = int64_t(blockIdx.x) * TILE, t1 = t0 + TILE < n ? t0 + TILE : n;
+  if (warp == 0) {
+    const int64_t s = next_boundary(slots, slots64, t0, t1, n, n_rows);
+    const int64_t e = s < t1 ? next_boundary(slots, slots64, t1, n, n, n_rows) : s;
+    if (lane == 0) {
+      span[0] = s;
+      span[1] = e;
+    }
+  }
+  __syncthreads();
+  const int64_t s = span[0], e = span[1];
+  if (s >= e) return;
+  const int m1 = int((e < t1 ? e : t1) - s);
+
+  // 2. the runs of the owned slots below t1 (a block scan of their starts);
+  // the last run ends at e
+  int64_t key = -1;
+  bool valid = false;
+  int start = 0;
+  if (tid < m1) {
+    key = load_slot(slots, slots64, s + tid);
+    valid = key >= 0 && key < n_rows;
+    start = tid == 0 || !valid || key != load_slot(slots, slots64, s + tid - 1);
+    dst[tid] = pos ? pos[s + tid] : s + tid;
+  }
+  int incl = start;
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int64_t v = v0 + 32 * u;
-        r[u] = V();
-        if (valid && v < vecs_per_row) r[u] = src[v];
-      }
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += x;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += warp_total[w];
+  int n_runs = 0;
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int64_t v = v0 + 32 * u;
-        if (v < vecs_per_row) dst[v] = r[u];
+  for (int w = 0; w < WARPS; ++w) n_runs += warp_total[w];
+  if (start) {
+    run_row[incl - 1] = valid ? key : -1;
+    run_first[incl - 1] = tid;
+  }
+  if (stats) {  // the bytes this CTA reads from the host: one row a valid run
+    const int reads = __syncthreads_count(start && valid);
+    if (tid == 0 && reads)
+      atomicAdd(stats, static_cast<unsigned long long>(reads) * vpr * sizeof(V));
+  } else {
+    __syncthreads();
+  }
+
+  // 3. each run's vectors, read once and written to every slot of the run
+  // (n_runs * vpr < 2^31: the entry checks TILE * vpr)
+  const int total = n_runs * vpr;
+  for (int k0 = tid; k0 < total; k0 += UNROLL * THREADS) {
+    V val[UNROLL];
+    int run[UNROLL], v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int k = k0 + u * THREADS;
+      run[u] = k < total ? k / vpr : -1;
+      v[u] = k - run[u] * vpr;
+      val[u] = V();
+      if (run[u] >= 0 && run_row[run[u]] >= 0) val[u] = host[run_row[run[u]] * vpr + v[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (run[u] < 0) continue;
+      const int64_t j1 = run[u] + 1 < n_runs ? run_first[run[u] + 1] : e - s;
+      for (int64_t j = run_first[run[u]]; j < j1; ++j) {
+        const int64_t p = j < m1 ? dst[j] : (pos ? pos[s + j] : s + j);
+        out[p * vpr + v[u]] = val[u];
       }
     }
   }
 }
 
-unsigned grid_for(int64_t n_slots) {
-  int64_t blocks = (n_slots + 7) / 8;  // 256 threads: 8 warps, one row each
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  return unsigned(blocks);
-}
-
 template <typename V>
-void launch_gather(const void* host, const void* slots, int slots64, void* out,
-                   int64_t n_rows, int64_t n_slots, int64_t row_bytes, cudaStream_t s) {
-  host_gather_kernel<V><<<grid_for(n_slots), 256, 0, s>>>(
-      static_cast<const V*>(host), slots, slots64, static_cast<V*>(out), n_rows, n_slots,
-      row_bytes / int64_t(sizeof(V)));
+cudaError_t launch_gather(const void* host, const void* slots, int slots64, const int64_t* pos,
+                          void* out, int64_t n_rows, int64_t n, int64_t row_bytes,
+                          unsigned long long* stats, cudaStream_t s) {
+  host_gather_kernel<V><<<unsigned((n + TILE - 1) / TILE), THREADS, 0, s>>>(
+      static_cast<const V*>(host), slots, slots64, pos, static_cast<V*>(out), n_rows, n,
+      int(row_bytes / int64_t(sizeof(V))), stats);
+  return cudaGetLastError();
 }
 
 // Device address of byte `offset` of the pinned, mapped host allocation that
@@ -115,23 +219,34 @@ bool bad_args(int64_t n_rows, int64_t n_slots, int64_t row_bytes, int vec_bytes)
 
 }  // namespace
 
+// slots: sorted (invalid ones anywhere), with pos[i] the output row of
+// sorted slot i, or pos == nullptr for out row i. stats: null, or one int64
+// to which the launch adds the bytes it reads from the host table.
 extern "C" int wg_host_gather(const void* host_base, int64_t host_offset, const void* slots,
-                              int slots64, void* out, int64_t n_rows, int64_t n_slots,
-                              int64_t row_bytes, int vec_bytes, void* stream) {
-  if (bad_args(n_rows, n_slots, row_bytes, vec_bytes)) return int(cudaErrorInvalidValue);
+                              int slots64, const void* pos, void* out, int64_t n_rows,
+                              int64_t n_slots, int64_t row_bytes, int vec_bytes, void* stats,
+                              void* stream) {
+  if (bad_args(n_rows, n_slots, row_bytes, vec_bytes) ||
+      row_bytes / vec_bytes * TILE >= (int64_t(1) << 31) || n_slots / TILE >= (int64_t(1) << 31))
+    return int(cudaErrorInvalidValue);
   char* host = nullptr;
   cudaError_t e = device_address(host_base, host_offset, vec_bytes, &host);
   if (e != cudaSuccess) return int(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t* p = static_cast<const int64_t*>(pos);
+  unsigned long long* st = static_cast<unsigned long long*>(stats);
+#define WG_E(V) \
+  e = launch_gather<V>(host, slots, slots64, p, out, n_rows, n_slots, row_bytes, st, s)
   switch (vec_bytes) {
-    case 16: launch_gather<uint4>(host, slots, slots64, out, n_rows, n_slots, row_bytes, s); break;
-    case 8: launch_gather<uint2>(host, slots, slots64, out, n_rows, n_slots, row_bytes, s); break;
-    case 4: launch_gather<uint32_t>(host, slots, slots64, out, n_rows, n_slots, row_bytes, s); break;
-    case 2: launch_gather<uint16_t>(host, slots, slots64, out, n_rows, n_slots, row_bytes, s); break;
-    case 1: launch_gather<uint8_t>(host, slots, slots64, out, n_rows, n_slots, row_bytes, s); break;
+    case 16: WG_E(uint4); break;
+    case 8: WG_E(uint2); break;
+    case 4: WG_E(uint32_t); break;
+    case 2: WG_E(uint16_t); break;
+    case 1: WG_E(uint8_t); break;
     default: return int(cudaErrorInvalidValue);
   }
-  return int(cudaGetLastError());
+#undef WG_E
+  return int(e);
 }
 
 extern "C" int wg_host_scatter(const void* host_base, int64_t host_offset, const void* slots,

@@ -130,23 +130,25 @@ class HostEmbedding:
             check_input(hot[0] >= 0 and hot[-1] < self.n, "hot id out of range")
             ids = torch.from_numpy(hot[: self.hot_cap]).to(self.device)
             self.cache_map[ids] = torch.arange(ids.shape[0], dtype=torch.int32, device=self.device)
-            self.cache_rows[: ids.shape[0]] = host_gather_rows(self.host_table, ids)
+            self.cache_rows[: ids.shape[0]] = host_gather_rows(self.host_table, ids, _sort=False)
         return self
 
     # -- forward --------------------------------------------------------------
 
-    def gather(self, ids: torch.Tensor) -> torch.Tensor:
+    def gather(self, ids: torch.Tensor, *, _sort: bool = True) -> torch.Tensor:
         """Rows at ``ids`` [B] on the card: hits from ``cache_rows`` (kernel
         A), misses from the host (kernel E, slot -1 for every hit, so the
         host link carries only the misses), zero rows for ids outside
-        ``[0, n)`` (``_serve_cached_host``, host_embedding.py:146-160)."""
+        ``[0, n)`` (``_serve_cached_host``, host_embedding.py:146-160).
+        ``_sort=False`` (internal) passes to :func:`host_gather_rows` for
+        ids that are unique and need no sort, as the sampler's are."""
         check_input(ids.dim() == 1, f"ids must be 1-D, got {tuple(ids.shape)}")
         valid = (ids >= 0) & (ids < self.n)
         slot = torch.where(valid, ids, 0)
         line = self.cache_map[slot.long()]
         hit = valid & (line >= 0)
         hot = gather_rows(self.cache_rows, torch.where(hit, line, 0))
-        cold = host_gather_rows(self.host_table, torch.where(valid & ~hit, slot, -1))
+        cold = host_gather_rows(self.host_table, torch.where(valid & ~hit, slot, -1), _sort=_sort)
         return torch.where(hit[:, None], hot, cold)
 
     # -- backward / optimizer -------------------------------------------------
@@ -173,8 +175,9 @@ class HostEmbedding:
         valid = uids < oob
         slot = torch.where(valid, uids, -1)
         names = tuple(sorted(self.host_slots))
-        rows = host_gather_rows(self.host_table, slot).float()
-        srows = {s: host_gather_rows(self.host_slots[s], slot) for s in names}
+        # the valid slots are ascending (_dedup_sorted), so kernel E needs no sort
+        rows = host_gather_rows(self.host_table, slot, _sort=False).float()
+        srows = {s: host_gather_rows(self.host_slots[s], slot, _sort=False) for s in names}
         new_rows, new_srows = self.optimizer.update(rows, ugrads, srows, self.step, lr)
         new_rows = new_rows.to(self.dtype).contiguous()
         host_scatter_rows(self.host_table, slot, new_rows)

@@ -45,11 +45,17 @@ CSR_SPMM = kernels.Kernel(
 )
 CSR_SDDMM = kernels.Kernel(
     "csr_sddmm", "csr_sddmm.cu", "wg_csr_sddmm",
-    [_P, _P, _P, _L, _P, _L, _L, _P, _L, _L, _I, _I, _P],
+    [_P, _P, _P, _L, _P, _L, _L, _P, _L, _L, _I, _I, _I, _I, _I, _P, _P, _P],
     replaces="wholegraph_tpu/ops/spmm_pallas.py:771",  # _sddmm_window_kernel
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel H's plan: destination rows per CTA, the widest source span it stages
+# in shared memory, and the most edges a staged tile may have
+SDDMM_TILE = 128
+SDDMM_WINDOW = 384
+SDDMM_EDGE_CAP = 4096
 
 # edges per step of the plain versions: an unchunked [E, D] intermediate is
 # 21 GB at the bench shape (the chunking of spmm_pallas._segment_spmm_chunked)
@@ -239,12 +245,17 @@ def csr_sddmm_plain(row_ptr: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
 
 
 def csr_sddmm(row_ptr: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
+              b: torch.Tensor, *, _stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel H: the SDDMM over a destination-sorted CSR, ``out[e] =
     Σ_j a[dst_e, j] · b[clip(col[e]), j]`` for every edge, ``dst_e`` from
     ``row_ptr``; a [n, D] and b [n_src, D] (f32 or bf16, alike, either with
     a row stride), accumulated in f32, out [E] f32. No gradient: see
-    :class:`CsrSddmm`."""
+    :class:`CsrSddmm`.
+
+    ``_stats`` is internal, for reports: an int64 tensor of 4 on the card
+    to which the kernel adds the tiles it staged in shared memory, the bytes
+    it staged, the tiles it read from device memory and their edges. The
+    plain version leaves it as it is."""
     _check_csr(row_ptr, col)
     check_input(a.dim() == 2 and b.dim() == 2, "a and b must be 2-D")
     check_input(a.shape[1] == b.shape[1], "a/b dim mismatch")
@@ -257,12 +268,18 @@ def csr_sddmm(row_ptr: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
         return csr_sddmm_plain(row_ptr, col, a, b)
     if E == 0 or a.shape[1] == 0:
         return torch.zeros((E,), dtype=torch.float32, device=a.device)
+    check_input(_stats is None or (_stats.dtype == torch.int64 and _stats.numel() >= 4
+                                   and _stats.device == a.device and _stats.is_contiguous()),
+                "_stats must be a contiguous int64 tensor of 4 on the operands' device")
     a, b = _rows(a), _rows(b)
     out = torch.empty((E,), dtype=torch.float32, device=a.device)
+    spans = torch.empty((2 * -(-a.shape[0] // SDDMM_TILE),), dtype=torch.int32, device=a.device)
     row_ptr, col = _index32(row_ptr), _index32(col)
     CSR_SDDMM(row_ptr.data_ptr(), col.data_ptr(), a.data_ptr(), a.stride(0), b.data_ptr(),
               b.stride(0), b.shape[0], out.data_ptr(), a.shape[0], a.shape[1],
-              _DTYPE_CODE[a.dtype], _vec(a, b), kernels.cuda_stream(a.device))
+              _DTYPE_CODE[a.dtype], _vec(a, b), SDDMM_TILE, SDDMM_WINDOW, SDDMM_EDGE_CAP,
+              spans.data_ptr(), None if _stats is None else _stats.data_ptr(),
+              kernels.cuda_stream(a.device))
     return out
 
 

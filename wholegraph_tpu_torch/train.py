@@ -114,7 +114,10 @@ def train_step(state: SageTrainState, centers: torch.Tensor, labels: torch.Tenso
     ml = state.graph.multilayer_sample(centers, cfg.fanouts, seed=seed)
     mark("sample")
     ids = ml.unique_gids
-    rows = (state.embedding.gather(ids) * ml.unique_mask[:, None]).requires_grad_()
+    # the sampler's ids are unique, in ascending runs: the host tier reads
+    # its misses as they come, with no sort
+    kw = {"_sort": False} if isinstance(state.embedding, HostEmbedding) else {}
+    rows = (state.embedding.gather(ids, **kw) * ml.unique_mask[:, None]).requires_grad_()
     mark("gather")
     loss = cross_entropy_loss(state.model(rows, ml), labels)
     state.dense_opt.zero_grad(set_to_none=True)
