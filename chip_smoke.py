@@ -18,7 +18,15 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    arguments of every kernel wrapper call;
 4. holds kernels A-D against their plain PyTorch versions on exactly those
    tensors (plus A in bf16 and D as a sum), and times kernel, plain version
-   and one PyTorch library call computing the same function;
+   and one PyTorch library call computing the same function. Kernel C is the
+   whole sampler hop (``sample_hop_uniform``): bit-equal to its plain
+   version on all five ``SampleResult`` fields on the step's two hops and on
+   graphs with rows of degree 0, K and K + 1, a hub and out-of-range
+   centres at K = 1, 10, 15 and 200, one kernel launched per
+   ``csr_sample_neighbors`` call (its counter and torch.profiler); timed,
+   also as device time from a CUDA graph, beside the parent's route (the PyTorch draw, then C's fetch ``sample_cols``), the
+   plain version and the fetch's ``take`` (a reference: no single PyTorch
+   call samples); C's fetch route checked on the same hops' positions;
 5. runs a tiny step three times from the same numpy-made graph, table and
    weights on the card and on the CPU, with the embedding in device memory
    and in the host tier: the RNG and samples must be bit-equal, losses and
@@ -26,8 +34,10 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    cached row equal to its host row;
 6. the device-memory path: resets the launch counters, trains STEPS
    full-width steps timed by CUDA events (per step and per stage of
-   ``train.STAGES``), fails if any of kernels A-D was not launched, and
-   profiles ten more steps with ``torch.profiler``;
+   ``train.STAGES``), fails if any of kernels A-D was not launched or the
+   sampler launched anything but kernel C's hop, once a hop, and profiles
+   ten more steps with ``torch.profiler`` (launches per step, busy share,
+   the sample stage beside the step);
 7. the host gather: a 4,000,000 x 256 f32 pinned table behind an empty
    cache, batch 524,288, uniform ids and ids clustered in a span of
    1.25 x batch rows; kernel E bit-equal to its plain version, its rate
@@ -42,7 +52,7 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    untouched rows), and so is every A and B call on the cache's lines; then
    HOST_STEPS timed steps with the stage split, the
    cache hit fraction, peak device memory and pinned bytes, failing if any
-   of kernels A-F was not launched;
+   of kernels A-F was not launched (C: once a hop);
 9. ``[fg_spmm]``: kernel G at ``bench_spmm_clustered``'s shapes
    (``clustered_csr(2^20, 16, 192)``, 20,441,541 edges, x [2^20, 256] f32):
    mean, sum and weighted sum held against the plain version, then the
@@ -76,8 +86,11 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
     ``scatter(donate=True)`` on ``bench_scatter``'s (kernel B's masked
     route), failing unless each launched; then each call held bit-equal to
     its plain version and timed beside its bound, kernel A on the same ids
-    and ``index_select`` (``index_copy_`` for the scatter); I against A over
-    densities 1.0, 0.8, 0.5, 0.2 at D = 256 and D = 16; I exact on unsorted,
+    and ``index_select`` (``index_copy_`` for the scatter), with I's own
+    counts (``_stats``: tiles windowed, tiles read directly, bytes read);
+    I against A and ``index_select`` over densities 1.0, 0.8, 0.5, 0.2 at
+    D = 256 and D = 16, by CUDA events and by device time (a CUDA graph),
+    with its counts; I exact on unsorted,
     duplicated and out-of-range ids; the add against float64; a tiny table
     on the card against the CPU;
 
@@ -92,11 +105,15 @@ kernel H through ``csr_sddmm`` alone (:func:`sddmm_times_only`), so that the
 same function also times another tree's H: run it from that tree's root as
 ``python3 -c "import runpy, sys; sys.argv = ['chip_smoke.py', '--sddmm-times'];
 runpy.run_path('<path of this file>', run_name='__main__')"``, which imports
-that tree's package.
+that tree's package. ``--paired-times`` does the same for kernels C and I
+and the steps around C (:func:`paired_times`), for runs of two trees in
+turns on one card.
 """
 
 import contextlib
 import dataclasses
+import inspect
+import itertools
 import json
 import math
 import statistics
@@ -140,6 +157,7 @@ STORE_ROWS = 4_000_000      # bench_gather's, bench_gather_sorted's and bench_sc
 STORE_BATCH = 1 << 19       # their batch
 F32_EPS = float(np.finfo(np.float32).eps)
 BF16_EPS = 2.0 ** -7
+SAMPLE_FIELDS = ("neighbors", "mask", "positions", "edge_ids", "degree")
 
 
 def require(cond, msg):
@@ -296,21 +314,146 @@ def check_scatter(calls):
     return errs, times
 
 
-def check_sample_cols(calls):
-    """Kernel C on each hop's sampled-column fetch."""
+def same_sample(a, b):
+    """All five fields of two SampleResults bit-equal (dtypes included)."""
+    return all(getattr(a, f).dtype == getattr(b, f).dtype and torch.equal(getattr(a, f), getattr(b, f))
+               for f in SAMPLE_FIELDS)
+
+
+def parent_route(row_ptr, col, centers, K, seed, hop):
+    """The parent's hop: the draw and the rank fixpoint as PyTorch ops, then
+    the separate column fetch (C's ``wg_sample_cols``)."""
+    start, deg = sampling_mod._centre_rows(row_ptr, centers)
+    pos, mask = sampling_mod._sample_positions_uniform(deg, K, seed, centers, hop)
+    return G.sample_cols(col, start, pos, mask), mask, pos, start[:, None] + pos, deg
+
+
+def profiled(fn, iters=1):
+    """By torch.profiler over ``iters`` calls of ``fn()`` (copies and memsets
+    not counted): the kernel launches it recorded per call, and their
+    names. On an H100 the profiler missed launches of some windows (19 of
+    20 recorded, 2 of 20, none of 1), so a count it gives is a lower bound
+    and times come from :func:`graph_ms`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    return sum(e.count for e in kern) / iters, [e.key[:60] for e in kern]
+
+
+def graph_ms(fn, iters=20):
+    """Device ms of one call of ``fn()``: ``iters`` calls captured in a CUDA
+    graph, the graph replayed and timed by CUDA events. The graph launches
+    the calls' kernels back to back, so none of the host's per-call work
+    (checks, allocations, the launch itself) is in the time, where at
+    D = 16 it is most of what :func:`cuda_ms` reads."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    ms = cuda_ms(g.replay, iters=5, warmup=1) / iters
+    del g
+    return ms
+
+
+def sampler_cases(gen):
+    """Graphs and centres beyond the step's: rows of degree 0, K and K + 1,
+    a hub of degree 10^6, every centre id outside [0, n) of either sign."""
+    out = []
+    for K in (1, 10, 15, 200):
+        n = 20_000
+        degs = torch.randint(0, 2 * K + 4, (n,), generator=gen, device="cuda")
+        degs[:6] = torch.tensor([0, 0, 0, K, K + 1, 1_000_000], device="cuda")
+        row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                             torch.cumsum(degs, 0)]).to(torch.int32)
+        col = torch.randint(0, n, (int(row_ptr[-1]),), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        centers = torch.cat([torch.arange(n, device="cuda"),
+                             torch.tensor([5, 5, 3, 4, 0, -1, -7, n, n + 9, -(2**31), 2**31 - 1],
+                                          device="cuda")]).to(torch.int32)
+        out.append((f"K={K} degrees 0, K, K+1, hub 10^6, out-of-range centres",
+                    (row_ptr, col, centers, K, 17, 1)))
+    return out
+
+
+def check_sample_hop(calls, gen):
+    """Kernel C on each hop of the step, and on :func:`sampler_cases`: the
+    hop kernel bit-equal to its plain version on all five fields, and one
+    kernel launch per hop; C's fetch route on the same hops' positions.
+    Times per hop: the kernel (CUDA events, and its device time by
+    :func:`graph_ms`), the parent's route (the PyTorch draw then the fetch), the
+    plain version, and the fetch's ``take`` with its index and mask inside
+    the timed call (a reference: no single PyTorch call samples)."""
     errs, times = [], []
-    for i, (col, start, pos, mask) in enumerate(calls):
-        err = max_err(G.sample_cols(col, start, pos, mask), G.sample_cols_plain(col, start, pos, mask))
-        require(err == 0.0, f"sample_cols differs from its plain version: {err}")
-        B, K = pos.shape
-        errs.append({"case": f"hop{i} B={B} K={K}", "max_abs_err": err, "tol": 0.0})
-        flat = (start.long()[:, None] + pos.long()).clamp(0, col.shape[0] - 1)
-        times.append(timings(
-            f"hop{i} [{B}, {K}]",
-            lambda: G.sample_cols(col, start, pos, mask),
-            lambda: G.sample_cols_plain(col, start, pos, mask),
-            lambda: torch.take(col, flat),
-            bound_ms(4 * B + 9 * B * K + 4 * int(mask.sum()))))
+    cases = [(f"hop{i} B={c[2].numel()} K={c[3]}", c) for i, c in enumerate(calls)]
+    for case, (row_ptr, col, centers, K, seed, hop) in cases + sampler_cases(gen):
+        got = sampling_mod.sample_hop_uniform(row_ptr, col, centers, K, seed, hop)
+        ref = sampling_mod.csr_sample_neighbors_plain(row_ptr, col, centers, K, seed, hop)
+        require(same_sample(got, ref), f"sample_hop_uniform ({case}) differs from its plain version")
+        require(same_sample(got, sampling_mod.SampleResult(*parent_route(
+            row_ptr, col, centers, K, seed, hop))), f"the parent's route differs ({case})")
+
+        def call():
+            return wt.ops.csr_sample_neighbors(row_ptr, col, centers, K, seed=seed, hop=hop)
+
+        k0 = sampling_mod.SAMPLE_HOP.launches
+        call()
+        require(sampling_mod.SAMPLE_HOP.launches == k0 + 1,
+                f"csr_sample_neighbors ({case}) did not launch kernel C once")
+        for _ in range(3):  # a window in which the profiler recorded something
+            n_kern, names = profiled(call, 5)
+            if names:
+                break
+        require(names and n_kern <= 1 and all("hop_" in k for k in names),
+                f"csr_sample_neighbors ({case}) launched other kernels: {n_kern} a call, {names}")
+        dev_ms = graph_ms(call)
+        valid = int(ref.mask.sum())
+        errs.append({"case": case, "max_abs_err": 0.0, "tol": 0.0, "fields": list(SAMPLE_FIELDS),
+                     "valid_slots": valid, "kernels_per_call": n_kern})
+        # C's fetch route, on the same positions
+        start, _ = sampling_mod._centre_rows(row_ptr, centers)
+        fetch = G.sample_cols(col, start, ref.positions, ref.mask)
+        require(torch.equal(fetch, G.sample_cols_plain(col, start, ref.positions, ref.mask)),
+                f"sample_cols ({case}) differs from its plain version")
+        if not case.startswith("hop"):
+            continue
+        B = centers.numel()
+        pos, mask, n_e = ref.positions, ref.mask, col.shape[0]
+
+        def take():  # the fetch alone, index and mask in the call
+            e = (start.long()[:, None] + pos.long()).clamp(0, n_e - 1)
+            return torch.where(mask, torch.take(col, e), -1)
+
+        nbytes = B * (4 + 8 + 4) + 4 * valid + B * K * 13
+        b_ms, by = bound_ms(nbytes)
+        t = {"case": f"{case.split()[0]} [{B}, {K}]", "ms": cuda_ms(
+                lambda: sampling_mod.sample_hop_uniform(row_ptr, col, centers, K, seed, hop)),
+             "parent_route_ms": cuda_ms(lambda: parent_route(row_ptr, col, centers, K, seed, hop),
+                                        10),
+             "plain_ms": cuda_ms(lambda: sampling_mod.csr_sample_neighbors_plain(
+                 row_ptr, col, centers, K, seed, hop), 10),
+             "device_ms": dev_ms, "library_ms": None, "take_ms": cuda_ms(take), "bound_ms": b_ms,
+             "bound_by": by,
+             "bytes": nbytes, "valid_slots": valid,
+             "fetch_route": {"ms": cuda_ms(lambda: G.sample_cols(col, start, pos, mask)),
+                             "plain_ms": cuda_ms(lambda: G.sample_cols_plain(col, start, pos,
+                                                                             mask)),
+                             "bound_ms": bound_ms(4 * B + 9 * B * K + 4 * valid)[0]}}
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        times.append(t)
+        log(f"[check] sample_hop_uniform {t['case']}: kernel {t['ms']} ms (CUDA events over "
+            f"back-to-back calls; its device time {dev_ms} ms, from a CUDA graph), parent's route "
+            f"{t['parent_route_ms']} ms, plain {t['plain_ms']} ms, fetch take {t['take_ms']} ms "
+            f"(reference), bound {b_ms} ms; fetch route sample_cols {t['fetch_route']['ms']} ms")
     return errs, times
 
 
@@ -403,18 +546,19 @@ def link_rates():
             "h2d_ms": h2d, "d2h_ms": d2h}
 
 
-def device_time(state, batch, step_ms, steps=10):
+def device_time(state, batch, step_ms, steps=10, sample_ms=None):
     """Kernel time per training step under torch.profiler, its share of the
-    unprofiled median step, and the kernels that take most of it."""
+    unprofiled median step, launches per step, and the kernels that take
+    most of it."""
     work = [batch() for _ in range(steps)]
-    profile_steps("profile", lambda i: wt.train_step(state, *work[i], seed=1000 + i),
-                  step_ms, steps)
+    return profile_steps("profile", lambda i: wt.train_step(state, *work[i], seed=1000 + i),
+                         step_ms, steps, sample_ms)
 
 
-def profile_steps(tag, step, step_ms, steps):
+def profile_steps(tag, step, step_ms, steps, sample_ms=None):
     """Kernel time per call of ``step(i)`` under torch.profiler over
-    ``steps`` calls, its share of the unprofiled median ``step_ms``, and the
-    kernels that take most of it."""
+    ``steps`` calls, its share of the unprofiled median ``step_ms``, the
+    kernel launches per call, and the kernels that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -427,13 +571,16 @@ def profile_steps(tag, step, step_ms, steps):
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    per_step = sum(e.count for e in kern) / steps
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
     log(f"[{tag}] {steps} steps: device busy {busy_ms} ms per step, "
-        f"{len(kern)} kernel names, {sum(e.count for e in kern) / steps} launches per step; "
-        f"busy share of the {step_ms} ms median step: {busy_ms / step_ms}")
+        f"{len(kern)} kernel names, {per_step} launches per step; "
+        f"busy share of the {step_ms} ms median step: {busy_ms / step_ms}"
+        + ("" if sample_ms is None else f"; its sample stage {sample_ms} ms"))
     for e in top:
         log(f"[{tag}]   {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
             f"{e.count // steps:5d}x  {e.key[:100]}")
+    return {"busy_ms": busy_ms, "launches_per_step": per_step, "busy_share": busy_ms / step_ms}
 
 
 def coherent(emb):
@@ -548,12 +695,34 @@ def train_timed(state, batch, steps, seed0):
     return step_ms, host_ms, stage_ms, losses, c
 
 
+def timed_steps(tag, state, batch, steps, profile_steps=10):
+    """One warm-up step; ``steps`` timed steps (:func:`train_timed`) with the
+    launch counts from 0, reported; then ``profile_steps`` under the profiler
+    (:func:`device_time`). Returns the summary, the launches of the timed
+    steps and the last batch's centres."""
+    float(wt.train_step(state, *batch(), seed=1))
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, host_ms, stage_ms, losses, c = train_timed(state, batch, steps, 2)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    report_steps(tag, steps, step_ms, host_ms, stage_ms, losses, peak, launches)
+    med, sample = statistics.median(step_ms), statistics.median(stage_ms["sample"])
+    summary = {"step_median_ms": med, "step_p90_ms": quantile(step_ms, 0.9),
+               "sample_median_ms": sample, "peak_bytes": peak,
+               "stage_medians_ms": {k: statistics.median(v) for k, v in stage_ms.items()},
+               **device_time(state, batch, med, profile_steps, sample)}
+    return summary, launches, c
+
+
 def report_steps(tag, steps, step_ms, host_ms, stage_ms, losses, peak, launches):
     log(f"[{tag}] {steps} steps at full width: first losses {losses[:5]}, last {losses[-5:]}")
     log(f"[{tag}] step ms (CUDA events) median {statistics.median(step_ms)}, "
         f"p90 {quantile(step_ms, 0.9)}, min {min(step_ms)}, max {max(step_ms)}; "
+        f"sample stage median {statistics.median(stage_ms['sample'])}; "
         f"host clock median {statistics.median(host_ms)}; "
-        f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB); launches {launches}")
+        f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB); hand-written kernel launches "
+        f"{launches} ({sum(launches.values()) / steps} per step)")
     log(f"[{tag}] stage ms medians (CUDA events): "
         + json.dumps({s: statistics.median(v) for s, v in stage_ms.items()}))
 
@@ -704,7 +873,7 @@ def host_tier_phase(cfg, link):
     calls = {k: [] for k in "ABCDEF"}
     with capture(host_mod, "gather_rows", calls["A"]), \
             capture(host_mod, "scatter_rows", calls["B"]), \
-            capture(sampling_mod, "sample_cols", calls["C"]), \
+            capture(sampling_mod, "sample_hop_uniform", calls["C"]), \
             capture(S, "neighbor_reduce", calls["D"]), \
             capture_kw(host_mod, "host_gather_rows", calls["E"]), \
             capture(host_mod, "host_scatter_rows", calls["F"]):
@@ -735,21 +904,16 @@ def host_tier_phase(cfg, link):
         log(f"[check] {name} (host tier): " + json.dumps(errs[key]))
     del calls, snap
 
-    float(wt.train_step(state, *batch(), seed=1))  # one more warm-up step
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, host_ms, stage_ms, losses, c = train_timed(state, batch, HOST_STEPS, 2)
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    path = (G.ROW_GATHER, G.ROW_SCATTER, G.SAMPLE_COLS, S.NEIGHBOR_AGG, H.HOST_GATHER,
+    _, launches, c = timed_steps("host_tier", state, batch, HOST_STEPS, profile_steps=5)
+    path = (G.ROW_GATHER, G.ROW_SCATTER, sampling_mod.SAMPLE_HOP, S.NEIGHBOR_AGG, H.HOST_GATHER,
             H.HOST_SCATTER)
     require(all(launches[k.name] > 0 for k in path), f"a kernel of the host tier never ran: {launches}")
+    require(launches["sample_hop_uniform"] == 2 * HOST_STEPS and launches["sample_cols"] == 0,
+            f"the host tier's sampler did not run one kernel C launch per hop: {launches}")
     require(bool(torch.isfinite(emb.gather(c)).all()), "non-finite host-tier rows")
     require(coherent(emb), "host tier: the cache lost coherence over the timed steps")
-    report_steps("host_tier", HOST_STEPS, step_ms, host_ms, stage_ms, losses, peak, launches)
     log(f"[host_tier] pinned {asked} bytes asked ({held} held); cache hit fraction {hit}; "
         f"link h2d {link['h2d_GBps']} GB/s, d2h {link['d2h_GBps']} GB/s")
-    device_time(state, batch, statistics.median(step_ms), steps=5)
     del state, emb, host_tensors
     free_pinned()
     return errs, times, launches
@@ -999,6 +1163,65 @@ def sddmm_times_only():
             S.csr_sddmm(rp, cols, x, y)
             out[f"{name}_D{dim}_ms"] = cuda_ms(lambda: S.csr_sddmm(rp, cols, x, y))
     log("[sddmm_times] " + json.dumps(out))
+
+
+PAIRED_STEPS = 30       # timed device-memory steps of a paired run
+PAIRED_HOST_STEPS = 10  # timed host-tier steps of a paired run
+
+
+def paired_times():
+    """Kernels C and I through entry points that every tree of the port
+    with the row store has, so that this function also times another tree
+    (run from its root as the module docstring says): PAIRED_STEPS
+    device-memory steps and PAIRED_HOST_STEPS host-tier steps
+    (:func:`timed_steps`), the two hops of a step through
+    ``csr_sample_neighbors`` (ms, device ms and kernels launched per hop),
+    and kernel I at ``bench_gather_sorted``'s ids as the store calls it,
+    f32 and bf16 (:func:`gather_times`), then over density
+    (:func:`sorted_sweep`). One JSON line."""
+    secs = kernels.build_all()
+    dev = torch.device("cuda")
+    out = {"build_s": max(secs.values()), "device": torch.cuda.get_device_name(0)}
+    cfg = wt.SageTrainConfig()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+
+    def batcher(state):
+        def batch():
+            c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device=dev,
+                              dtype=torch.int32)
+            return c, state.labels[c.long()]
+        return batch
+
+    state = wt.build_synthetic(cfg, device=dev, seed=0)
+    out["hbm"], _, c = timed_steps("paired hbm", state, batcher(state), PAIRED_STEPS, 5)
+    g = state.graph
+    ml = g.multilayer_sample(c, cfg.fanouts, seed=0)
+    hop_centres = (c, torch.where(ml.level_masks[1], ml.level_gids[1], 0))
+    for hop, (cent, K) in enumerate(zip(hop_centres, cfg.fanouts)):
+        def call():
+            return wt.ops.csr_sample_neighbors(g.row_ptr, g.col, cent, K, seed=0, hop=hop)
+
+        out[f"hop{hop}"] = {"ms": cuda_ms(call), "device_ms": graph_ms(call),
+                            "kernels_seen": profiled(call, 5)[0], "shape": [cent.numel(), K]}
+    del state, g, ml, c
+    torch.cuda.empty_cache()
+    hstate = wt.build_synthetic(cfg, device=dev, seed=0, host_cache_ratio=HOST_CACHE_RATIO)
+    out["host"], _, _ = timed_steps("paired host", hstate, batcher(hstate), PAIRED_HOST_STEPS, 5)
+    del hstate
+    free_pinned()
+
+    n, batch_n = STORE_ROWS, STORE_BATCH
+    data = torch.randn(n, 256, generator=gen, device=dev)
+    ids_s = sorted_ids(gen, n, batch_n, 0.8)
+    for tag, t in (("f32", data), ("bf16", data.to(torch.bfloat16))):
+        out[f"I_bench_{tag}"] = {**gather_times(
+            tag, lambda: G.gather_rows_sorted(t, ids_s, zero_invalid=True),
+            lambda: G.gather_rows_masked_plain(t, ids_s), t, ids_s),
+            **sorted_stats(t, ids_s, zero_invalid=True)}
+    out["I_sweep"] = sorted_sweep({"D=256 f32": data, "D=16 f32": torch.randn(
+        n, 16, generator=gen, device=dev)}, gen, n, batch_n)
+    log("[paired] " + json.dumps(out))
 
 
 def init_gat(layer, gen):
@@ -1278,31 +1501,92 @@ def sorted_ids(gen, n, batch, density):
     return torch.sort(base + pick).values.to(torch.int32)
 
 
-def window_share(slots, n, tile, window):
-    """Share of kernel I's tiles whose rows (clipped into [0, n)) span at
-    most ``window`` rows, so they are served from shared memory."""
-    s = slots.long().clamp(0, n - 1)
-    pad = -s.numel() % tile
-    if pad:
-        s = torch.cat([s, s[-1:].expand(pad)])
-    t = s.view(-1, tile)
-    return float(((t.max(1).values - t.min(1).values) < window).float().mean())
+def cold_ms(fn, arg_sets, iters=20):
+    """As :func:`cuda_ms`, each call on the next of ``arg_sets`` in turn, so
+    that no call finds the rows of the one before it in the 50 MB L2."""
+    it = itertools.cycle(arg_sets)
+    return cuda_ms(lambda: fn(*next(it)), iters)
+
+
+def sorted_stats(data, slots, **kw):
+    """Kernel I's own counts for one call: tiles windowed, tiles read
+    directly, bytes asked of device memory (none where the tree's kernel I
+    does not count)."""
+    if "_stats" not in inspect.signature(G.gather_rows_sorted).parameters:
+        return {}
+    st = torch.zeros(3, dtype=torch.int64, device=slots.device)
+    G.gather_rows_sorted(data, slots, **kw, _stats=st)
+    w, d, nbytes = st.tolist()
+    return {"windowed_tiles": w, "direct_tiles": d, "bytes_read": nbytes,
+            "window_share": w / max(w + d, 1)}
 
 
 def gather_times(case, kernel, plain, data, slots, iters=20):
     """One store gather call timed beside its bound (each distinct valid row
     read once, each output row written once, the ids read once), its plain
-    version, kernel A on the same slots and ``index_select``."""
+    version, kernel A on the same slots and ``index_select``. The kernel, A
+    and ``index_select`` are timed in turns, three rounds, and each keeps its
+    median: on an H100 the first timing after the phase's set-up has read
+    up to 17 % slower than the same call timed next."""
     rb = data.shape[1] * data.element_size()
     valid = slots[(slots >= 0) & (slots < data.shape[0])]
     nbytes = torch.unique(valid).numel() * rb + slots.numel() * (rb + slots.element_size())
     clipped = slots.long().clamp(0, data.shape[0] - 1)
-    t = timings(case, kernel, plain, lambda: torch.index_select(data, 0, clipped),
-                bound_ms(nbytes), iters=iters, plain_iters=5)
-    t["row_gather_ms"] = cuda_ms(lambda: G.gather_rows(data, slots), iters)
+    fns = {"ms": kernel, "row_gather_ms": lambda: G.gather_rows(data, slots),
+           "library_ms": lambda: torch.index_select(data, 0, clipped)}
+    rounds = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            rounds[k].append(cuda_ms(fn, iters))
+    b_ms, by = bound_ms(nbytes)
+    t = {"case": case, **{k: statistics.median(v) for k, v in rounds.items()},
+         "plain_ms": cuda_ms(plain, 5), "bound_ms": b_ms, "bound_by": by, "rounds": rounds}
     t["bound_share"] = t["bound_ms"] / t["ms"]
     t["GBps_delivered"] = slots.numel() * rb / t["ms"] / 1e6
     return t
+
+
+def sorted_sweep(tables, gen, n, batch):
+    """Kernel I against A and ``index_select`` over id density on each of
+    ``tables`` ([n, D] by name), as the store calls I (``local_take_sorted``
+    with the density), held bit-equal to its plain version: ms by CUDA
+    events, warm (the same ids each call) and cold (four id sets in turn;
+    D = 16's spans fit the 50 MB L2), the device ms of each from a CUDA
+    graph (:func:`graph_ms`; at D = 16 the host's share of a call is
+    larger than the kernel's), and I's own counts."""
+    sweep = []
+    for name, data in tables.items():
+        rb = data.shape[1] * data.element_size()
+        for d in (1.0, 0.8, 0.5, 0.2):
+            sets = [sorted_ids(gen, n, batch, d) for _ in range(4)]
+            sl = sets[0]
+            idx = sl.long()
+            require(bit_equal(gather_mod.local_take_sorted(data, sl, density=d),
+                              G.gather_rows_plain(data, sl)),
+                    f"[store] local_take_sorted {name} d={d} differs from its plain version")
+            fns = {"I": lambda: G.gather_rows_sorted(data, sl, density=d),
+                   "A": lambda: G.gather_rows(data, sl),
+                   "index_select": lambda: torch.index_select(data, 0, idx)}
+            r = {"table": name, "density": d, **{f"{k}_ms": cuda_ms(f) for k, f in fns.items()},
+                 **{f"{k}_device_ms": graph_ms(f) for k, f in fns.items()},
+                 "I_cold_ms": cold_ms(lambda s: G.gather_rows_sorted(data, s, density=d),
+                                      [(s,) for s in sets]),
+                 "A_cold_ms": cold_ms(lambda s: G.gather_rows(data, s), [(s,) for s in sets]),
+                 "bound_ms": bound_ms(batch * (2 * rb + 4))[0],
+                 **dict(zip(("tile", "window"), G.sorted_plan(rb, density=d))),
+                 **sorted_stats(data, sl, density=d)}
+            r.update(I_over_A=r["I_ms"] / r["A_ms"], I_over_A_cold=r["I_cold_ms"] / r["A_cold_ms"],
+                     I_over_A_device=r["I_device_ms"] / r["A_device_ms"])
+            sweep.append(r)
+            log(f"[store] sweep {name} d={d}: I {r['I_ms']} ms, A {r['A_ms']} ms (I/A "
+                f"{r['I_over_A']}), index_select {r['index_select_ms']} ms; cold I "
+                f"{r['I_cold_ms']} ms, A {r['A_cold_ms']} ms (I/A {r['I_over_A_cold']}); device "
+                f"I {r['I_device_ms']} ms, A {r['A_device_ms']} ms (I/A {r['I_over_A_device']}), "
+                f"index_select {r['index_select_device_ms']} ms; bound {r['bound_ms']} ms; tile "
+                f"{r['tile']} window {r['window']} (the launch caps it at the longest span its "
+                f"rule accepts); I's counts: {r.get('windowed_tiles')} tiles windowed, "
+                f"{r.get('direct_tiles')} direct, {r.get('bytes_read')} bytes read")
+    return sweep
 
 
 def store_parity():
@@ -1393,14 +1677,15 @@ def store_phase():
                          lambda: G.gather_rows_sorted(data, slots, **kw),
                          lambda: G.gather_rows_masked_plain(data, slots), data, slots)
         tile, window = G.sorted_plan(dim * data.element_size())
-        t.update(tile=tile, window=window, window_share=window_share(slots, n, tile, window),
+        t.update(tile=tile, window=window, **sorted_stats(data, slots, **kw),
                  gather_ms=cuda_ms(lambda: (table if tag == "f32" else table16).gather(
                      ids_s, local_kernel="sorted")))
         times["I"].append(t)
         log(f"[store] I sorted {tag}: {t['ms']} ms ({t['GBps_delivered']} GB/s delivered, "
             f"{t['bound_share']} of the {t['bound_ms']} ms bound); A on the same ids "
             f"{t['row_gather_ms']} ms; plain {t['plain_ms']} ms; index_select {t['library_ms']} ms; "
-            f"tile {tile}, window {window}, {t['window_share']} of the tiles windowed; "
+            f"tile {tile}, window {window}; I's counts: {t['windowed_tiles']} tiles windowed, "
+            f"{t['direct_tiles']} direct, {t['bytes_read']} bytes read; "
             f"ShardedTable.gather {t['gather_ms']} ms")
     # J on the uniform bench ids
     (data, slots), kw = calls["J"][0]
@@ -1460,27 +1745,8 @@ def store_phase():
         "rows per id)")
 
     # I against A over density, and on a narrow table
-    narrow = wt.ShardedTable.create(n, 16, init=randn, generator=gen)
-    sweep = []
-    for name, tab in (("D=256 f32", table), ("D=16 f32", narrow)):
-        data = tab.data
-        rb = data.shape[1] * data.element_size()
-        for d in (1.0, 0.8, 0.5, 0.2):
-            sl = sorted_ids(gen, n, batch, d)
-            got = gather_mod.local_take_sorted(data, sl, density=d)
-            require(bit_equal(got, G.gather_rows_plain(data, sl)),
-                    f"[store] local_take_sorted {name} d={d} differs from its plain version")
-            tile, window = G.sorted_plan(rb, density=d)
-            i_ms = cuda_ms(lambda: G.gather_rows_sorted(data, sl, density=d))
-            a_ms = cuda_ms(lambda: G.gather_rows(data, sl))
-            b_ms, _ = bound_ms(batch * (2 * rb + 4))
-            sweep.append({"table": name, "density": d, "I_ms": i_ms, "A_ms": a_ms,
-                          "I_over_A": i_ms / a_ms, "bound_ms": b_ms, "tile": tile,
-                          "window": window, "window_share": window_share(sl, n, tile, window)})
-            log(f"[store] sweep {name} d={d}: I {i_ms} ms, A {a_ms} ms (I/A {i_ms / a_ms}); "
-                f"bound {b_ms} ms; tile {tile} window {window}, "
-                f"{sweep[-1]['window_share']} of the tiles windowed")
-    del narrow
+    sweep = sorted_sweep({"D=256 f32": table.data, "D=16 f32": wt.ShardedTable.create(
+        n, 16, init=randn, generator=gen).data}, gen, n, batch)
     # I is exact on any ids: unsorted, duplicated, out of range
     data = table.data
     cases = {"unsorted": ids_s[torch.randperm(batch, generator=gen, device="cuda")],
@@ -1525,11 +1791,13 @@ def bench_entry(kern, name, launches, errs, main_call, calls, **extra):
 
 
 def kernel_entry(kern, launches, errs, times, **extra):
-    """One kernel's line: times per step (the sum over the step's calls);
-    for E and F also the link bytes' time at the measured ``copy_`` rate."""
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms") + (
-        ("copy_ms",) if all("copy_ms" in t for t in times) else ())
-    total = {k: sum(t[k] for t in times) for k in keys}
+    """One kernel's line: times per step (the sum over the step's calls; a
+    library time only where every call has one); for E and F also the link
+    bytes' time at the measured ``copy_`` rate, for C its parent's route and
+    the fetch's ``take``."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "copy_ms", "parent_route_ms", "take_ms")
+    total = {k: sum(t[k] for t in times) for k in keys if all(t.get(k) is not None for t in times)}
+    total.setdefault("library_ms", None)
     return {
         "name": kern.name, "route": "cuda", "source": f"wholegraph_tpu_torch/csrc/{kern.source}",
         "replaces": kern.replaces, "launches": launches[kern.name],
@@ -1575,7 +1843,7 @@ def main():
     calls = {k: [] for k in ("A", "B", "C", "D")}
     with capture(emb_mod, "gather_rows", calls["A"]), \
             capture(emb_mod, "scatter_rows", calls["B"]), \
-            capture(sampling_mod, "sample_cols", calls["C"]), \
+            capture(sampling_mod, "sample_hop_uniform", calls["C"]), \
             capture(S, "neighbor_reduce", calls["D"]):
         c, y = batch()
         loss0 = float(wt.train_step(state, c, y, seed=0))
@@ -1588,7 +1856,7 @@ def main():
 
     checks = {}
     for key, kern, fn in (("A", G.ROW_GATHER, check_gather), ("B", G.ROW_SCATTER, check_scatter),
-                          ("C", G.SAMPLE_COLS, check_sample_cols),
+                          ("C", sampling_mod.SAMPLE_HOP, lambda c: check_sample_hop(c, gen)),
                           ("D", S.NEIGHBOR_AGG, check_neighbor_agg)):
         require(calls[key], f"kernel {kern.name} was not called by the main path")
         checks[key] = (kern, fn(calls[key]))
@@ -1598,18 +1866,12 @@ def main():
     small_parity()
 
     # the device-memory path: reset the counters, train, read them
-    c, y = batch()
-    float(wt.train_step(state, c, y, seed=1))  # one more warm-up step
-    reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, host_ms, stage_ms, losses, c = train_timed(state, batch, STEPS, 2)
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
+    _, launches, c = timed_steps("train", state, batch, STEPS)
     require(all(launches[k.name] > 0 for k, _ in checks.values()),
             f"a kernel of the path never ran: {launches}")
+    require(launches["sample_hop_uniform"] == 2 * STEPS and launches["sample_cols"] == 0,
+            f"the sampler did not run one kernel C launch per hop: {launches}")
     require(bool(torch.isfinite(state.embedding.table[c.long()]).all()), "non-finite table rows")
-    report_steps("train", STEPS, step_ms, host_ms, stage_ms, losses, peak, launches)
-    device_time(state, batch, statistics.median(step_ms))
     del state
     torch.cuda.empty_cache()
 
@@ -1648,6 +1910,13 @@ def main():
     b = next(e for e in out if e["name"] == G.ROW_SCATTER.name)  # B gains its masked route
     b.update(launches_masked=st_routes["masked"], store_scatter=st_times["B"][0])
     b["checks"] = b["checks"] + st_errs["B"]
+    c = next(e for e in out if e["name"] == sampling_mod.SAMPLE_HOP.name)  # C's fetch route
+    c.update(library="none: no single PyTorch call samples; take_ms is the fetch's torch.take "
+                     "with its index and mask in the call, for reference only",
+             fetch_route={"name": G.SAMPLE_COLS.name, "entry": G.SAMPLE_COLS.entry,
+                          "launches": launches[G.SAMPLE_COLS.name],
+                          **{k: sum(t["fetch_route"][k] for t in c["calls"])
+                             for k in ("ms", "plain_ms", "bound_ms")}})
     out.append(kernel_entry(H.HOST_GATHER, host_launches, host_errs["E"] + bench_errs,
                             host_times["E"], steps=HOST_STEPS, bench=bench, link=link))
     out.append(kernel_entry(H.HOST_SCATTER, host_launches, host_errs["F"], host_times["F"],
@@ -1681,5 +1950,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--sddmm-times"]:
         sddmm_times_only()
+    elif sys.argv[1:] == ["--paired-times"]:
+        paired_times()
     else:
         main()

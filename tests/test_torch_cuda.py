@@ -25,6 +25,7 @@ from wholegraph_tpu_torch.graph import GraphStructure
 from wholegraph_tpu_torch.models import HomoGNN
 from wholegraph_tpu_torch.ops import gather_kernels as G
 from wholegraph_tpu_torch.ops import host_kernels as H
+from wholegraph_tpu_torch.ops import sampling as SM
 from wholegraph_tpu_torch.ops import spmm_kernels as S
 from wholegraph_tpu_torch.utils.error import CudaError
 
@@ -85,6 +86,126 @@ def test_sample_cols_matches_plain(dev, K):
     out = G.sample_cols(*(t.to(dev) for t in (col, start, pos, mask)))
     assert G.SAMPLE_COLS.launches == before + 1
     assert torch.equal(out.cpu(), G.sample_cols_plain(col, start, pos, mask))
+
+
+SAMPLE_FIELDS = ("neighbors", "mask", "positions", "edge_ids", "degree")
+
+
+def _sampler_graph(K, seed, n=300):
+    """Rows 0-2 of degree 0, row 3 of degree K, row 4 of K + 1, row 5 a hub
+    of max(50 K, 5000), the rest uniform in [0, 2K + 3]; the centres: every
+    row, the special ones again, and ids outside [0, n) of both signs."""
+    rs = np.random.RandomState(seed)
+    degs = rs.randint(0, 2 * K + 4, n)
+    degs[:6] = [0, 0, 0, K, K + 1, max(50 * K, 5000)]
+    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(degs)]).astype(np.int32))
+    col = torch.from_numpy(rs.randint(0, n, int(row_ptr[-1])).astype(np.int32))
+    centers = torch.from_numpy(np.concatenate([
+        np.arange(n), [5, 3, 4, 0, 5], [-1, -7, n, n + 9, -(2**31), 2**31 - 1],
+        rs.randint(0, n, 2500)]).astype(np.int32))
+    return row_ptr, col, centers
+
+
+def _assert_same_sample(a, b, what):
+    for f in SAMPLE_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), f"{what}: {f} differs"
+
+
+@pytest.mark.parametrize("K", [1, 10, 15, 16, 17, 32, 33, 129, 200])
+def test_sample_hop_matches_plain(dev, K):
+    """Kernel C's hop, all five fields, against its plain version: both
+    register templates (K <= 16, K <= 32) and the warp kernel, on degree-0
+    rows, degrees K and K+1, a hub and out-of-range centres."""
+    row_ptr, col, centers = _sampler_graph(K, K)
+    before = (SM.SAMPLE_HOP.launches, G.SAMPLE_COLS.launches)
+    got = SM.csr_sample_neighbors(row_ptr.to(dev), col.to(dev), centers.to(dev), K,
+                                  seed=5, hop=1)
+    assert (SM.SAMPLE_HOP.launches, G.SAMPLE_COLS.launches) == (before[0] + 1, before[1])
+    _assert_same_sample(got, SM.csr_sample_neighbors_plain(row_ptr, col, centers, K, 5, 1),
+                        f"K={K}")
+    again = SM.csr_sample_neighbors(row_ptr.to(dev), col.to(dev), centers.to(dev), K,
+                                    seed=5, hop=1)
+    _assert_same_sample(got, again, f"K={K}, a second run")
+
+
+def test_sample_hop_takes_int64_row_ptr(dev):
+    """An int64 row_ptr on the card samples as on the CPU, where the plain
+    version takes it as it is."""
+    row_ptr, col, centers = _sampler_graph(15, 15)
+    got = SM.csr_sample_neighbors(row_ptr.long().to(dev), col.to(dev), centers.to(dev), 15,
+                                  seed=5, hop=1)
+    _assert_same_sample(got, SM.csr_sample_neighbors(row_ptr.long(), col, centers, 15, seed=5,
+                                                     hop=1), "int64 row_ptr")
+
+
+def _host_uniform(row_ptr, col, centers, K, seed, hop):
+    """The uniform sampler one centre at a time in Python (the fixpoint
+    iterated to convergence over sorted picks), for fanouts whose plain
+    version would take millions of launches."""
+    import bisect
+
+    def mix(x):
+        x ^= x >> 16
+        x = (x * 0x85EBCA6B) & 0xFFFFFFFF
+        x ^= x >> 13
+        x = (x * 0xC2B2AE35) & 0xFFFFFFFF
+        return x ^ (x >> 16)
+
+    pos = np.zeros((len(centers), K), np.int32)
+    for b, c in enumerate(int(c) for c in centers):
+        deg = int(row_ptr[c + 1] - row_ptr[c])
+        assert deg > K
+        h = mix((c & 0xFFFFFFFF) ^ mix(seed ^ 0x9E3779B9))
+        chosen = []
+        for j in range(K):
+            r = mix(((hop * SM.HOP_STRIDE + j) & 0xFFFFFFFF) ^ h) % (deg - j)
+            p = r
+            while r + bisect.bisect_right(chosen, p) != p:
+                p = r + bisect.bisect_right(chosen, p)
+            bisect.insort(chosen, p)
+            pos[b, j] = p
+    return pos
+
+
+def test_sample_hop_picks_in_device_memory(dev):
+    """K = 3100: four warps' picks exceed 48 KB, so each centre's picks live
+    in its own row of edge_ids until the last pass rewrites it."""
+    K = 3100
+    row_ptr = torch.tensor([0, 40_000, 43_101, 43_200], dtype=torch.int32)
+    col = torch.arange(43_200, dtype=torch.int32).flip(0).contiguous()
+    centers = torch.tensor([0, 1, 2, 0, 1], dtype=torch.int32)
+    got = SM.csr_sample_neighbors(row_ptr.to(dev), col.to(dev), centers.to(dev), K,
+                                  seed=9, hop=2)
+    keep = [0, 1, 3, 4]  # degree > K; centre 2 (degree 99) takes all
+    pos = _host_uniform(row_ptr.numpy(), col.numpy(), centers[keep].numpy(), K, 9, 2)
+    assert torch.equal(got.positions.cpu()[keep], torch.from_numpy(pos))
+    start = row_ptr[centers.long()]
+    assert torch.equal(got.edge_ids.cpu()[keep], (start[:, None] + got.positions.cpu())[keep])
+    assert torch.equal(got.neighbors.cpu()[keep], col[got.edge_ids.cpu()[keep].long()])
+    assert got.mask.cpu()[keep].all() and got.mask.cpu()[2].sum() == 99
+    assert torch.equal(got.positions.cpu()[2, :99], torch.arange(99, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("fanouts", [(10, 15), (40, 3)])
+def test_multilayer_sample_on_card_matches_cpu(dev, fanouts):
+    rs = np.random.RandomState(sum(fanouts))
+    n = 2000
+    src, dst = rs.randint(0, n, n * 12), rs.randint(0, n, n * 12)
+    src[:3000] = 7  # a hub
+    centers = torch.from_numpy(rs.choice(n, 256, replace=False).astype(np.int32))
+    cmask = torch.from_numpy(rs.rand(256) < 0.9)
+    on_card = GraphStructure.from_coo(src, dst, n, device=dev)
+    on_cpu = GraphStructure.from_coo(src, dst, n, device="cpu")
+    a = on_card.multilayer_sample(centers.to(dev), fanouts, seed=3, center_mask=cmask.to(dev))
+    b = on_cpu.multilayer_sample(centers, fanouts, seed=3, center_mask=cmask)
+    assert torch.equal(a.unique_gids.cpu(), b.unique_gids)
+    assert torch.equal(a.unique_mask.cpu(), b.unique_mask)
+    for x, y in zip(a.hops, b.hops):
+        for f in ("nbr_idx", "mask", "center_mask"):
+            assert torch.equal(getattr(x, f).cpu(), getattr(y, f)), f
+    for x, y in zip(a.level_gids, b.level_gids):
+        assert torch.equal(x.cpu(), y)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -585,13 +706,89 @@ def test_sorted_gather_any_plan(dev, tile, window):
 
 
 def test_sorted_gather_wide_window_above_48kb(dev):
-    """A window above 48 KB of shared memory (the default limit) launches."""
+    """A window above 48 KB of shared memory (the default limit) launches:
+    tiles of 64 ids of 1 KB rows may take spans of up to 66 rows, so a
+    window of 66 rows is kept whole, and tiles of 64 consecutive ids fill it."""
     table = _store_table(4000, 256, torch.float32, seed=2)
-    slots = _store_slots("sorted", 4000, 2048, torch.int64)
-    tile, window = G.sorted_plan(1024, density=0.2)
+    slots = torch.arange(100, 2148, dtype=torch.int64)  # consecutive: every tile windowed
+    slots[::97] = _store_slots("sorted", 4000, slots[::97].numel(), torch.int64)
+    tile, window = G.sorted_plan(1024, tile=64, window=66)
     assert window * 1024 > 48 * 1024
-    out = G.gather_rows_sorted(table.to(dev), slots.to(dev), density=0.2)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    out = G.gather_rows_sorted(table.to(dev), slots.to(dev), tile=tile, window=window,
+                               _stats=stats)
     assert torch.equal(_bits(out.cpu()), _bits(G.gather_rows_plain(table, slots)))
+    assert stats[0] > 0
+
+
+def _tile_mix_slots(n, tile, window, g):
+    """Tiles of consecutive ids and of duplicates (the window moves fewer
+    bytes), tiles of ids further apart than the window (read directly), a
+    shuffled dense tile, a tile with ids outside [0, n), a partial last tile."""
+    span = window + 1
+    dense = int(torch.randint(0, n - tile, (1,), generator=g)) + torch.arange(tile)
+    sparse = (int(torch.randint(0, n - span * tile, (1,), generator=g))
+              + span * torch.arange(tile)) % n
+    dup = int(torch.randint(0, n - tile, (1,), generator=g)) + torch.arange(tile) // 8
+    oob = dense.clone()
+    oob[::4] = torch.tensor([-1, n, -(2**31), n + 3]).repeat(tile)[: oob[::4].numel()]
+    parts = [dense, sparse, dup, dense[torch.randperm(tile, generator=g)], sparse.flip(0), oob,
+             dense[: tile // 2 + 1]]
+    return torch.cat(parts).to(torch.int32)
+
+
+@pytest.mark.parametrize("D,dtype", [(3, torch.float32), (5, torch.float32),
+                                     (6, torch.bfloat16), (10, torch.bfloat16),
+                                     (16, torch.float32), (256, torch.float32),
+                                     (256, torch.bfloat16)])
+def test_sorted_gather_tile_mix(dev, D, dtype):
+    """Windowed and direct tiles in one call, rows of 12 and 20 bytes among
+    them (no 16-byte vectors), clip and zero; the kernel's
+    own counts add up to the tiles, and both kinds occur."""
+    tile, window = G.sorted_plan(D * dtype.itemsize, density=0.8)
+    n = (window + 1) * tile + 1000
+    table = _store_table(n, D, dtype, seed=D)
+    slots = _tile_mix_slots(n, tile, window, _gen(D))
+    tiles = -(-slots.numel() // tile)
+    for zero_invalid, plain in ((False, G.gather_rows_plain), (True, G.gather_rows_masked_plain)):
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+        out = G.gather_rows_sorted(table.to(dev), slots.to(dev), density=0.8,
+                                   zero_invalid=zero_invalid, _stats=stats)
+        assert torch.equal(_bits(out.cpu()), _bits(plain(table, slots)))
+        windowed, direct, nbytes = stats.tolist()
+        assert windowed + direct == tiles and windowed > 0 and direct > 0, stats
+        assert 0 < nbytes <= slots.numel() * (window + 1) * D * dtype.itemsize
+
+
+@pytest.mark.parametrize("D", [256, 4, 3])
+def test_sorted_gather_counts_match_the_tiles(dev, D):
+    """Tiles of consecutive ids all take the window and read their spans;
+    tiles of ids a window apart all read their rows directly."""
+    tile, window = G.sorted_plan(D * 4, density=1.0)
+    n = (window + 1) * tile * 4 + 10
+    table = _store_table(n, D, torch.float32, seed=3)
+    for case in ("dense", "sparse"):
+        step = 1 if case == "dense" else window + 1
+        slots = (torch.arange(4 * tile) * step).to(torch.int32)
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+        out = G.gather_rows_sorted(table.to(dev), slots.to(dev), _stats=stats)
+        assert torch.equal(_bits(out.cpu()), _bits(G.gather_rows_plain(table, slots)))
+        span_rows = int((slots.view(4, tile).max(1).values - slots.view(4, tile).min(1).values
+                         + 1).sum())
+        want = [4, 0, span_rows * D * 4] if case == "dense" else [0, 4, 4 * tile * D * 4]
+        assert stats.tolist() == want, (case, stats)
+
+
+def test_sorted_gather_of_a_view_at_an_offset(dev):
+    """A table whose base is 4 bytes past an allocation: spans are never
+    16-byte aligned, so windows arrive by 4-byte copies."""
+    flat = torch.randn(8 * 5000 + 1, generator=_gen(4))
+    table = flat[1:].view(5000, 8)
+    slots = torch.sort(torch.randperm(3300, generator=_gen(5))[:3000]).values.to(torch.int32)
+    on_card = flat.to(dev)[1:].view(5000, 8)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    out = G.gather_rows_sorted(on_card, slots.to(dev), _stats=stats)
+    assert torch.equal(out.cpu(), G.gather_rows_plain(table, slots)) and stats[0] > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

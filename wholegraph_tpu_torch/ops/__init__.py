@@ -8,15 +8,15 @@ from .gather_kernels import (ROW_GATHER, ROW_GATHER_MASKED, ROW_SCATTER, SAMPLE_
 from .graph_ops import append_unique
 from .host_kernels import (HOST_GATHER, HOST_SCATTER, host_gather_rows, host_scatter_rows,
                            pinned_empty)
-from .sampling import SampleResult, csr_sample_neighbors
+from .sampling import SAMPLE_HOP, SampleResult, csr_sample_neighbors, sample_hop_uniform
 from .spmm import padded_gather_neighbors, padded_reduce, padded_softmax
 from .spmm_kernels import (CSR_SDDMM, CSR_SPMM, NEIGHBOR_AGG, CsrSddmm, CsrSpmm, NeighborReduce,
                            csr_sddmm, csr_spmm, neighbor_reduce, sddmm_window, spmm_window,
                            transpose_csr)
 
 # every hand-written kernel of the port, one per C entry point
-KERNELS = (ROW_GATHER, ROW_SCATTER, SAMPLE_COLS, NEIGHBOR_AGG, HOST_GATHER, HOST_SCATTER,
-           CSR_SPMM, CSR_SDDMM, SORTED_GATHER, ROW_GATHER_MASKED)
+KERNELS = (ROW_GATHER, ROW_SCATTER, SAMPLE_HOP, SAMPLE_COLS, NEIGHBOR_AGG, HOST_GATHER,
+           HOST_SCATTER, CSR_SPMM, CSR_SDDMM, SORTED_GATHER, ROW_GATHER_MASKED)
 
 __all__ = [
     "KERNELS",
@@ -37,6 +37,7 @@ __all__ = [
     "pinned_empty",
     "SampleResult",
     "csr_sample_neighbors",
+    "sample_hop_uniform",
     "padded_gather_neighbors",
     "padded_reduce",
     "padded_softmax",

@@ -1,4 +1,4 @@
-"""Row gathers, row scatters and sampled-column fetch: kernels A, B, C, I and J.
+"""Row gathers, row scatters and sampled-column fetch: kernels A, B, I, J and C's fetch.
 
 The counterpart of ``wholegraph_tpu/ops/gather_pallas.py``. Each public
 function here is a wrapper: on a CUDA tensor it launches its hand-written
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -42,7 +43,7 @@ ROW_GATHER_MASKED = kernels.Kernel(
 )
 SORTED_GATHER = kernels.Kernel(
     "sorted_gather", "sorted_gather.cu", "wg_sorted_gather",
-    [_P, _P, _I, _P, _L, _L, _L, _I, _I, _I, _I, _P],
+    [_P, _P, _I, _P, _L, _L, _L, _I, _I, _I, _I, _P, _P],
     replaces="wholegraph_tpu/ops/gather_pallas.py:560",  # _window_gather_kernel
 )
 SAMPLE_COLS = kernels.Kernel(
@@ -218,7 +219,9 @@ def sorted_plan(row_bytes: int, *, density: float = 1.0, tile=None, window=None)
     (by default the largest power of two from 32 to 256, one id per thread
     at most, whose window stays within SORTED_WINDOW_BYTES) and rows the
     CTA's shared-memory window holds (by default sized for ``density``), the
-    window capped at what shared memory holds beside the tile's ids."""
+    window capped at what shared memory holds beside the tile's ids. The
+    launch caps it again at the longest span the kernel's per-tile rule can
+    accept, so shared memory no tile would use is not reserved."""
     check_input(row_bytes > 0, "rows must not be empty")
     if tile is None:
         tile = 32
@@ -233,16 +236,24 @@ def sorted_plan(row_bytes: int, *, density: float = 1.0, tile=None, window=None)
 
 
 def gather_rows_sorted(table: torch.Tensor, slots: torch.Tensor, *, tile=None, window=None,
-                       density: float = 1.0, zero_invalid: bool = False) -> torch.Tensor:
+                       density: float = 1.0, zero_invalid: bool = False,
+                       _stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows of ``table`` [N, D] at ``slots`` [B], exact for any slots
     (sorted or not, duplicated, out of range) and fastest for sorted, dense
-    ones: each CTA of ``tile`` ids copies the span of its rows into a
-    shared-memory window of ``window`` rows when the span fits, and reads
-    row by row when it does not (:func:`sorted_plan` sizes both from
-    ``density``). A slot outside ``[0, N)`` is clipped, as in
+    ones. Each CTA of ``tile`` ids decides for itself: it copies the span of
+    its rows into a shared-memory window of ``window`` rows when the span
+    fits and moves no more 32-byte sectors than reading the tile's rows
+    directly would, and reads the rows directly otherwise
+    (:func:`sorted_plan` sizes tile and window from ``density``; the choice
+    is the kernel's alone). A slot outside ``[0, N)`` is clipped, as in
     ``gather_pallas.local_take_sorted``, or with ``zero_invalid`` gives a
     zero row and reads nothing. Kernel I on CUDA; its plain versions are
-    :func:`gather_rows_plain` and :func:`gather_rows_masked_plain`."""
+    :func:`gather_rows_plain` and :func:`gather_rows_masked_plain`.
+
+    ``_stats``, internal, for reports: an int64 tensor of 3 on the card to
+    which the kernel adds the tiles it windowed, the tiles it read directly
+    and the bytes it asked of device memory (each windowed span, each direct
+    tile's valid rows); the plain version leaves it as it is."""
     _check_rows(table, slots)
     check_input(zero_invalid or table.shape[0] > 0 or slots.numel() == 0,
                 "gather from an empty table")
@@ -255,14 +266,19 @@ def gather_rows_sorted(table: torch.Tensor, slots: torch.Tensor, *, tile=None, w
     tile, window = sorted_plan(row_bytes, density=density, tile=tile, window=window)
     vec = vector_bytes(row_bytes, table.data_ptr(), out.data_ptr())
     check_input(tile * (row_bytes // vec) < 2**31, "a tile of rows must hold fewer than 2^31 vectors")
+    check_input(_stats is None or (_stats.dtype == torch.int64 and _stats.numel() >= 3
+                                   and _stats.device == slots.device and _stats.is_contiguous()),
+                "_stats must be a contiguous int64 tensor of 3 on the slots' device")
     SORTED_GATHER(table.data_ptr(), slots.data_ptr(), int(slots.dtype == torch.int64),
                   out.data_ptr(), table.shape[0], slots.shape[0], row_bytes, vec, tile, window,
-                  int(zero_invalid), kernels.cuda_stream(table.device))
+                  int(zero_invalid), None if _stats is None else _stats.data_ptr(),
+                  kernels.cuda_stream(table.device))
     return out
 
 
 # ---------------------------------------------------------------------------
-# Kernel C: sampled-column fetch
+# Kernel C's fetch route: sampled-column fetch of a draw made elsewhere (the
+# uniform hop, draw and fetch in one launch, is in ops/sampling.py)
 # ---------------------------------------------------------------------------
 
 
