@@ -55,11 +55,15 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    of kernels A-F was not launched (C: once a hop);
 9. ``[fg_spmm]``: kernel G at ``bench_spmm_clustered``'s shapes
    (``clustered_csr(2^20, 16, 192)``, 20,441,541 edges, x [2^20, 256] f32):
-   mean, sum and weighted sum held against the plain version, then the
-   forward plus backward of ``spmm_window``'s mean with G's transposed
-   launch held against its plain version and dx against an ``index_add_``
-   scatter; times beside the bound, the plain version and cuSPARSE
-   (``torch.sparse.mm``);
+   mean, sum and weighted sum held against the plain version, each also
+   bit-equal to G with staging off (``_stage=False``, every tile through
+   device memory) and to itself, with G's own counts (tiles staged, bytes
+   staged, tiles and edges left to device memory); the same degrees with
+   uniform columns (no tile staged); then the forward plus backward of
+   ``spmm_window``'s mean with G's transposed launch held against its plain
+   version and dx against an ``index_add_`` scatter; times (CUDA events and
+   device time from a CUDA graph) beside the bound, the plain version and
+   cuSPARSE (``torch.sparse.mm``);
 10. ``[fg_sddmm]``: kernel H at ``bench_sddmm_clustered``'s shapes, and on
     the same degrees with uniform columns (no tile's window fits), against
     its plain version (and against itself: two runs bit-identical), beside
@@ -95,19 +99,22 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
     on the card against the CPU;
 
 then prints a ``kernels`` JSON line (A-J, G's forward and transposed
-routes apart, B's masked launches beside its own), the card's name and
-power limit, and,
+routes apart, B's masked launches beside its own; ``launches`` counts
+wrapper calls, and G's and H's ``launches_per_call`` the kernels one
+bench call launched, as torch.profiler saw them, which must be G's span,
+window and rows kernels and H's two), the card's
+name and power limit, and,
 as the last line, ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without CUDA it exits non-zero before printing any result.
 
-``python3 chip_smoke.py --sddmm-times`` only builds the kernels and times
-kernel H through ``csr_sddmm`` alone (:func:`sddmm_times_only`), so that the
-same function also times another tree's H: run it from that tree's root as
-``python3 -c "import runpy, sys; sys.argv = ['chip_smoke.py', '--sddmm-times'];
+``python3 chip_smoke.py --paired-times [part ...]`` only builds the kernels
+and times them through entry points that every tree of the port with the
+row store has (:func:`paired_times`; parts ``steps``, ``store``, ``sweep``,
+``spmm``, ``sddmm``, all by default), so that the same function also times
+another tree: run it from that tree's root as ``python3 -c "import runpy,
+sys; sys.argv = ['chip_smoke.py', '--paired-times', 'store', 'spmm'];
 runpy.run_path('<path of this file>', run_name='__main__')"``, which imports
-that tree's package. ``--paired-times`` does the same for kernels C and I
-and the steps around C (:func:`paired_times`), for runs of two trees in
-turns on one card.
+that tree's package, for runs of two trees in turns on one card.
 """
 
 import contextlib
@@ -169,12 +176,19 @@ def log(*parts):
     print(*parts, flush=True)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean ms of ``fn`` over ``iters`` back-to-back calls, by CUDA events."""
+def cuda_ms(fn, iters=20, warmup=3, lead=True):
+    """Mean ms of ``fn`` over ``iters`` back-to-back calls, by CUDA events.
+    With ``lead`` one more call is enqueued before the first
+    event, so that the card is busy while the host enqueues the timed
+    calls: the host's latency to its first launch (tens of microseconds
+    through a ctypes wrapper) is not in the time unless the host cannot
+    keep ahead of the card. ``lead=False`` times from the first call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if lead:
+        fn()
     t0.record()
     for _ in range(iters):
         fn()
@@ -346,6 +360,32 @@ def profiled(fn, iters=1):
             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
             and not e.key.startswith(("Memcpy", "Memset"))]
     return sum(e.count for e in kern) / iters, [e.key[:60] for e in kern]
+
+
+G_KERNELS = ("csr_spmm_span_kernel", "csr_spmm_window_kernel", "csr_spmm_rows_kernel")
+H_KERNELS = ("csr_sddmm_device_kernel", "csr_sddmm_window_kernel")
+
+
+def launch_structure(case, fn, expect, tries=5):
+    """The kernels one call of ``fn()`` launches, as torch.profiler saw
+    them: the distinct kernel names of up to ``tries`` windows of 5 calls,
+    gathered until each of ``expect`` (one name for each kernel the wrapper
+    should launch) has been seen; the profiler misses launches on that
+    machine, so one window can show fewer. Fails unless it saw exactly the
+    kernels of ``expect``. Returns their number and the most launches a
+    call that one window recorded."""
+    seen, most = set(), 0.0
+    for _ in range(tries):
+        n_kern, names = profiled(fn, 5)
+        seen.update(names)
+        most = max(most, n_kern)
+        if all(any(x in k for k in seen) for x in expect):
+            break
+    require(all(any(x in k for k in seen) for x in expect)
+            and all(any(x in k for x in expect) for k in seen),
+            f"{case}: the profiler saw the kernels {sorted(seen)}, expected {list(expect)}")
+    return {"kernels_per_call": len(seen), "profiler_launches_per_call": most,
+            "kernels_seen": sorted(seen)}
 
 
 def graph_ms(fn, iters=20):
@@ -964,10 +1004,23 @@ def sparse_csr(row_ptr, col, vals, n_cols):
                                    check_invariants=False)
 
 
+def spmm_stats(args, kw):
+    """Kernel G's own counts for one call: tiles staged, bytes of x staged,
+    tiles and edges left to device memory (none where the tree's G does
+    not count)."""
+    if "_stats" not in inspect.signature(S.csr_spmm).parameters:
+        return {}
+    st = torch.zeros(4, dtype=torch.int64, device=args[2].device)
+    S.csr_spmm(*args, **kw, _stats=st)
+    return dict(zip(("tiles_staged", "staged_bytes", "tiles_from_device_memory",
+                     "edges_from_device_memory"), st.tolist()))
+
+
 def spmm_times(case, args, kw, library, iters=20, plain_iters=3):
     """One kernel G call (``csr_spmm(*args, **kw)``) held against its plain
-    version, then timed beside its bound, the plain version and the
-    cuSPARSE call ``library``."""
+    version, then timed (CUDA events, and device time from a CUDA graph)
+    beside its bound, the plain version and the cuSPARSE call ``library``,
+    with G's own counts."""
     row_ptr, col, x = args
     plain_kw = {k: v for k, v in kw.items() if k != "route"}
     ref = S.csr_spmm_plain(*args, **plain_kw)
@@ -981,13 +1034,26 @@ def spmm_times(case, args, kw, library, iters=20, plain_iters=3):
               + (4 * E if kw.get("edge_weight") is not None else 0))
     b_ms, by = bound_ms(nbytes, 2.0 * E * D)
     t = {"case": case, "ms": cuda_ms(lambda: S.csr_spmm(*args, **kw), iters),
+         "device_ms": graph_ms(lambda: S.csr_spmm(*args, **kw)),
          "plain_ms": cuda_ms(lambda: S.csr_spmm_plain(*args, **plain_kw), plain_iters,
                              warmup=1),
          "library_ms": cuda_ms(library, iters), "bound_ms": b_ms, "bound_by": by,
-         "edges": E, "dim": D, "longest_row": K, "source_rows_read": rows_read}
+         "edges": E, "dim": D, "longest_row": K, "source_rows_read": rows_read,
+         "per_edge_row_bytes": E * D * es, **spmm_stats(args, kw)}
     t["Medges_per_s"] = E / t["ms"] / 1e3
     t["bound_share"] = b_ms / t["ms"]
     return {"case": case, "max_abs_err": err, "tol": tol}, t
+
+
+def check_routes(case, args, kw):
+    """Kernel G staged (the default) bit-equal to G with staging off, every
+    tile through device memory, and to itself."""
+    out = S.csr_spmm(*args, **kw)
+    require(bit_equal(out, S.csr_spmm(*args, **kw, _stage=False)),
+            f"csr_spmm {case}: the staged route differs from the device route")
+    require(bit_equal(out, S.csr_spmm(*args, **kw)), f"csr_spmm {case}: two runs differ")
+    return {"case": f"{case}: staged == device route, two runs bit-identical",
+            "max_abs_err": 0.0, "tol": 0.0}
 
 
 def sddmm_times(case, args, library, iters=20, plain_iters=3):
@@ -1021,6 +1087,13 @@ def sddmm_times(case, args, library, iters=20, plain_iters=3):
     return {"case": case, "max_abs_err": err, "tol": tol}, t
 
 
+def fmt_g_stats(t):
+    return (f"G counted {t['tiles_staged']} tiles staging {t['staged_bytes']} bytes of x in "
+            f"shared memory ({t['per_edge_row_bytes']} bytes of x rows if read per edge) and "
+            f"{t['tiles_from_device_memory']} tiles ({t['edges_from_device_memory']} edges) "
+            f"left to device memory")
+
+
 def fmt_staged(t):
     return (f"H counted {t['tiles_staged']} tiles staging {t['staged_bytes']} bytes in shared "
             f"memory ({t['per_edge_row_bytes']} bytes of b rows if read per edge) and "
@@ -1030,8 +1103,10 @@ def fmt_staged(t):
 
 def fmt_times(t):
     return (f"{t['ms']} ms ({t['Medges_per_s']} Medges/s, {t['bound_share']} of the "
-            f"{t['bound_ms']} ms bound, {t['bound_by']}); plain {t['plain_ms']} ms; "
-            f"cuSPARSE {t['library_ms']} ms")
+            f"{t['bound_ms']} ms bound, {t['bound_by']}"
+            + (f"; device {t['device_ms']} ms" if "device_ms" in t else "")
+            + f"); plain {t['plain_ms']} ms; cuSPARSE {t['library_ms']} ms"
+            + (f"; kernels a call {t['kernels_seen']}" if "kernels_seen" in t else ""))
 
 
 def fg_spmm_phase(g, fg):
@@ -1052,13 +1127,30 @@ def fg_spmm_phase(g, fg):
                                        ("sum", "sum", None, torch.ones(E, device="cuda")),
                                        ("weighted sum", "sum", w, w)):
         lib = sparse_csr(rp, col, vals, n)
-        e, t = spmm_times(f"bench {case} [{n}, {dim}] f32", (rp, col, x),
-                          {"reduce": reduce, "edge_weight": weight},
+        kw = {"reduce": reduce, "edge_weight": weight}
+        e, t = spmm_times(f"bench {case} [{n}, {dim}] f32", (rp, col, x), kw,
                           lambda: torch.sparse.mm(lib, x))
-        errs.append(e)
+        t.update(launch_structure(f"[fg_spmm] G {case}", lambda: S.csr_spmm(rp, col, x, **kw),
+                                  G_KERNELS))
+        errs += [e, check_routes(f"bench {case}", (rp, col, x), kw)]
         times.append(t)
-        log(f"[fg_spmm] G {case}: " + fmt_times(t) + f"; err {e['max_abs_err']} (tol {e['tol']})")
+        require(t["tiles_staged"] == -(-n // S.SPMM_TILE) and t["tiles_from_device_memory"] == 0,
+                f"[fg_spmm] G {case}: not every tile of the bench graph was staged: {t}")
+        log(f"[fg_spmm] G {case}: " + fmt_times(t) + f"; err {e['max_abs_err']} (tol {e['tol']}); "
+            + fmt_g_stats(t) + "; bit-equal to the device route and to itself")
         del lib
+    # the bench degrees with uniform columns: no tile's window fits
+    ucol = random_cols(rp, n, gen)
+    lib = sparse_csr(rp, ucol, inv_deg[dst], n)
+    kw = {"reduce": "mean"}
+    e, t = spmm_times(f"uniform columns mean [{n}, {dim}] f32", (rp, ucol, x), kw,
+                      lambda: torch.sparse.mm(lib, x))
+    require(t["tiles_staged"] == 0, f"[fg_spmm] G staged a tile of uniform columns: {t}")
+    errs += [e, check_routes("uniform columns mean", (rp, ucol, x), kw)]
+    times.append(t)
+    log(f"[fg_spmm] G uniform columns mean: " + fmt_times(t) + f"; err {e['max_abs_err']} "
+        f"(tol {e['tol']}); " + fmt_g_stats(t))
+    del lib, ucol
 
     # forward + backward of spmm_window's mean with respect to x
     xg = x.clone().requires_grad_()
@@ -1090,11 +1182,15 @@ def fg_spmm_phase(g, fg):
     lib_t = sparse_csr(t_rp, t_col, torch.ones(E, device="cuda"), n)
     e_t, t_t = spmm_times(f"bench backward dx (transposed CSR, longest row {K_t})",
                           (t_rp, t_col, ctd), kw, lambda: torch.sparse.mm(lib_t, ctd))
+    t_t.update(launch_structure("[fg_spmm] G transposed",
+                                lambda: S.csr_spmm(t_rp, t_col, ctd, **kw), G_KERNELS))
     e_dx = {"case": "bench backward dx vs index_add_ scatter", "max_abs_err": err_dx,
             "tol": tol_dx}
+    e_r = check_routes("bench backward dx", (t_rp, t_col, ctd), kw)
     log(f"[fg_spmm] G transposed (backward dx): " + fmt_times(t_t)
         + f"; err {e_t['max_abs_err']} (tol {e_t['tol']}); whole dx against an index_add_ "
-        f"scatter: err {err_dx} (tol {tol_dx})")
+        f"scatter: err {err_dx} (tol {tol_dx}); " + fmt_g_stats(t_t)
+        + "; bit-equal to the device route and to itself")
     fb_ms = cuda_ms(fwd_bwd, 5, warmup=1)
     tr_ms = cuda_ms(lambda: S.transpose_csr(rp, col, n), 5, warmup=1)
     fb = {"fwd_bwd_ms": fb_ms, "fwd_bwd_Medges_per_s": E / fb_ms / 1e3,
@@ -1104,7 +1200,7 @@ def fg_spmm_phase(g, fg):
         f"{tr_ms} ms of it)")
     del xg, lib_t, calls, dx_ref, x, w, dst
     torch.cuda.empty_cache()
-    return (errs, times), ([e_t, e_dx], [t_t]), fb
+    return (errs, times), ([e_t, e_dx, e_r], [t_t]), fb
 
 
 def random_cols(row_ptr, n_src, gen):
@@ -1130,6 +1226,8 @@ def fg_sddmm_phase(g):
         pattern = sparse_csr(rp, cols, torch.ones(g.edge_count, device="cuda"), n)
         e, t = sddmm_times(f"{name} [{n}, {dim}] f32", (rp, cols, a, b),
                            lambda: torch.sparse.sampled_addmm(pattern, a, b.t(), beta=0.0))
+        t.update(launch_structure(f"[fg_sddmm] H {name}", lambda: S.csr_sddmm(rp, cols, a, b),
+                                  H_KERNELS))
         lib_err = max_err(torch.sparse.sampled_addmm(pattern, a, b.t(), beta=0.0).values(),
                           S.csr_sddmm(rp, cols, a, b))
         t["library_max_abs_err"] = lib_err
@@ -1143,84 +1241,140 @@ def fg_sddmm_phase(g):
     return errs, times
 
 
-def sddmm_times_only():
-    """Kernel H through ``csr_sddmm`` alone, which every tree of the port
-    has: on the bench graph (``clustered_csr(2^20, 16, 192)``) and on its
-    degrees with uniform columns, at D = 256 f32 and at GAT's head width
-    (D = 64 views of a [2^20, 4, 64] tensor, row stride 256). One JSON line
-    of ms by CUDA events, 20 calls each."""
-    secs = kernels.build_all()
-    g = wt.clustered_csr(1 << 20, 16, 192)
-    n, rp = g.node_count, g.row_ptr
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(22)
-    a = torch.randn(n, 256, generator=gen, device="cuda")
-    b = torch.randn(n, 256, generator=gen, device="cuda")
-    ha, hb = a.view(n, 4, 64)[:, 1, :], b.view(n, 4, 64)[:, 2, :]
-    out = {"build_s": sum(secs.values())}
-    for name, cols in (("clustered", g.col), ("random", random_cols(rp, n, gen))):
-        for dim, x, y in ((256, a, b), (64, ha, hb)):
-            S.csr_sddmm(rp, cols, x, y)
-            out[f"{name}_D{dim}_ms"] = cuda_ms(lambda: S.csr_sddmm(rp, cols, x, y))
-    log("[sddmm_times] " + json.dumps(out))
-
-
 PAIRED_STEPS = 30       # timed device-memory steps of a paired run
 PAIRED_HOST_STEPS = 10  # timed host-tier steps of a paired run
+PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm")
 
 
-def paired_times():
-    """Kernels C and I through entry points that every tree of the port
-    with the row store has, so that this function also times another tree
-    (run from its root as the module docstring says): PAIRED_STEPS
-    device-memory steps and PAIRED_HOST_STEPS host-tier steps
-    (:func:`timed_steps`), the two hops of a step through
-    ``csr_sample_neighbors`` (ms, device ms and kernels launched per hop),
-    and kernel I at ``bench_gather_sorted``'s ids as the store calls it,
-    f32 and bf16 (:func:`gather_times`), then over density
-    (:func:`sorted_sweep`). One JSON line."""
+def paired_times(parts=PAIRED_PARTS):
+    """Kernels through entry points that every tree of the port with the row
+    store has, so that this function also times another tree (run from its
+    root as the module docstring says). One JSON line, by part:
+
+    * ``steps``: PAIRED_STEPS device-memory steps and PAIRED_HOST_STEPS
+      host-tier steps (:func:`timed_steps`), and the two hops of a step
+      through ``csr_sample_neighbors`` (ms, device ms, kernels a hop);
+    * ``store``: kernel I at ``bench_gather_sorted``'s ids as the store
+      calls it, f32 and bf16, and kernel J at ``bench_gather``'s uniform
+      ids (:func:`gather_times`: beside A and ``index_select``, in turns),
+      each also as device time from a CUDA graph, and J and
+      ``index_select`` by :func:`cuda_ms` with and without ``lead``;
+    * ``sweep``: kernel I over density (:func:`sorted_sweep`);
+    * ``spmm``: kernel G at the bench graph's mean and transposed (the
+      backward's dx) calls, on its degrees with uniform columns, and one GAT
+      head call (``bench_gat_layer``'s graph, a [2^18, 64] view with row
+      stride 256, attention weights), by :func:`spmm_times`;
+    * ``sddmm``: kernel H through ``csr_sddmm`` on the bench graph and on
+      uniform columns, at D = 256 and at GAT's head width (views of a
+      [2^20, 4, 64] tensor), 20 calls each."""
     secs = kernels.build_all()
     dev = torch.device("cuda")
-    out = {"build_s": max(secs.values()), "device": torch.cuda.get_device_name(0)}
-    cfg = wt.SageTrainConfig()
+    out = {"build_s": max(secs.values()), "device": torch.cuda.get_device_name(0),
+           "parts": list(parts)}
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
+    if "steps" in parts:
+        cfg = wt.SageTrainConfig()
 
-    def batcher(state):
-        def batch():
-            c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device=dev,
-                              dtype=torch.int32)
-            return c, state.labels[c.long()]
-        return batch
+        def batcher(state):
+            def batch():
+                c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+                return c, state.labels[c.long()]
+            return batch
 
-    state = wt.build_synthetic(cfg, device=dev, seed=0)
-    out["hbm"], _, c = timed_steps("paired hbm", state, batcher(state), PAIRED_STEPS, 5)
-    g = state.graph
-    ml = g.multilayer_sample(c, cfg.fanouts, seed=0)
-    hop_centres = (c, torch.where(ml.level_masks[1], ml.level_gids[1], 0))
-    for hop, (cent, K) in enumerate(zip(hop_centres, cfg.fanouts)):
-        def call():
-            return wt.ops.csr_sample_neighbors(g.row_ptr, g.col, cent, K, seed=0, hop=hop)
+        state = wt.build_synthetic(cfg, device=dev, seed=0)
+        out["hbm"], _, c = timed_steps("paired hbm", state, batcher(state), PAIRED_STEPS, 5)
+        g = state.graph
+        ml = g.multilayer_sample(c, cfg.fanouts, seed=0)
+        hop_centres = (c, torch.where(ml.level_masks[1], ml.level_gids[1], 0))
+        for hop, (cent, K) in enumerate(zip(hop_centres, cfg.fanouts)):
+            def call():
+                return wt.ops.csr_sample_neighbors(g.row_ptr, g.col, cent, K, seed=0, hop=hop)
 
-        out[f"hop{hop}"] = {"ms": cuda_ms(call), "device_ms": graph_ms(call),
-                            "kernels_seen": profiled(call, 5)[0], "shape": [cent.numel(), K]}
-    del state, g, ml, c
-    torch.cuda.empty_cache()
-    hstate = wt.build_synthetic(cfg, device=dev, seed=0, host_cache_ratio=HOST_CACHE_RATIO)
-    out["host"], _, _ = timed_steps("paired host", hstate, batcher(hstate), PAIRED_HOST_STEPS, 5)
-    del hstate
-    free_pinned()
+            out[f"hop{hop}"] = {"ms": cuda_ms(call), "device_ms": graph_ms(call),
+                                "kernels_seen": profiled(call, 5)[0], "shape": [cent.numel(), K]}
+        del state, g, ml, c
+        torch.cuda.empty_cache()
+        hstate = wt.build_synthetic(cfg, device=dev, seed=0, host_cache_ratio=HOST_CACHE_RATIO)
+        out["host"], _, _ = timed_steps("paired host", hstate, batcher(hstate), PAIRED_HOST_STEPS,
+                                        5)
+        del hstate
+        free_pinned()
 
     n, batch_n = STORE_ROWS, STORE_BATCH
-    data = torch.randn(n, 256, generator=gen, device=dev)
-    ids_s = sorted_ids(gen, n, batch_n, 0.8)
-    for tag, t in (("f32", data), ("bf16", data.to(torch.bfloat16))):
-        out[f"I_bench_{tag}"] = {**gather_times(
-            tag, lambda: G.gather_rows_sorted(t, ids_s, zero_invalid=True),
-            lambda: G.gather_rows_masked_plain(t, ids_s), t, ids_s),
-            **sorted_stats(t, ids_s, zero_invalid=True)}
-    out["I_sweep"] = sorted_sweep({"D=256 f32": data, "D=16 f32": torch.randn(
-        n, 16, generator=gen, device=dev)}, gen, n, batch_n)
+    if "store" in parts or "sweep" in parts:
+        data = torch.randn(n, 256, generator=gen, device=dev)
+    if "store" in parts:
+        ids_s = sorted_ids(gen, n, batch_n, 0.8)
+        for tag, t in (("f32", data), ("bf16", data.to(torch.bfloat16))):
+            kern = lambda: G.gather_rows_sorted(t, ids_s, zero_invalid=True)  # noqa: E731
+            out[f"I_bench_{tag}"] = {**gather_times(
+                tag, kern, lambda: G.gather_rows_masked_plain(t, ids_s), t, ids_s),
+                "device_ms": graph_ms(kern),
+                "row_gather_device_ms": graph_ms(lambda: G.gather_rows(t, ids_s)),
+                **sorted_stats(t, ids_s, zero_invalid=True)}
+        ids_u = torch.randint(0, n, (batch_n,), generator=gen, device=dev, dtype=torch.int32)
+        idx_u = ids_u.long()
+        kern = lambda: G.gather_rows_masked(data, ids_u)  # noqa: E731
+        require(bit_equal(kern(), G.gather_rows_masked_plain(data, ids_u)),
+                "[paired] J differs from its plain version")
+        out["J_bench"] = {**gather_times("uniform f32", kern,
+                                         lambda: G.gather_rows_masked_plain(data, ids_u),
+                                         data, ids_u),
+                          "device_ms": graph_ms(kern),
+                          "row_gather_device_ms": graph_ms(lambda: G.gather_rows(data, ids_u)),
+                          "library_device_ms": graph_ms(
+                              lambda: torch.index_select(data, 0, idx_u))}
+        # J and index_select by both definitions of cuda_ms, in turns, medians
+        fns = {"J": kern, "index_select": lambda: torch.index_select(data, 0, idx_u)}
+        rounds = {f"{k}_ms_{tag}": [] for k in fns for tag in ("lead", "no_lead")}
+        for _ in range(3):
+            for k, fn in fns.items():
+                for tag in ("lead", "no_lead"):
+                    rounds[f"{k}_ms_{tag}"].append(cuda_ms(fn, lead=tag == "lead"))
+        out["J_bench"]["cuda_ms_definitions"] = {k: statistics.median(v)
+                                                 for k, v in rounds.items()}
+    if "sweep" in parts:
+        out["I_sweep"] = sorted_sweep({"D=256 f32": data, "D=16 f32": torch.randn(
+            n, 16, generator=gen, device=dev)}, gen, n, batch_n)
+    if "store" in parts or "sweep" in parts:
+        del data
+        torch.cuda.empty_cache()
+
+    if "spmm" in parts or "sddmm" in parts:
+        g = wt.clustered_csr(1 << 20, 16, 192)
+        rp, N, E = g.row_ptr, g.node_count, g.edge_count
+        ucol = random_cols(rp, N, gen)
+    if "spmm" in parts:
+        x = torch.randn(N, 256, generator=gen, device=dev)
+        w = torch.rand(E, generator=gen, device=dev)
+        t_rp, t_col, perm = S.transpose_csr(rp, g.col, N)
+        inv_deg = 1.0 / (rp[1:] - rp[:-1]).clamp(min=1).float()
+        mean_vals = inv_deg[S.csr_edge_dst(rp, E)]
+        gg = wt.clustered_csr(1 << 18, 16, 192)
+        featv = torch.randn(gg.node_count, 4, 64, generator=gen, device=dev)
+        alpha = torch.rand(gg.edge_count, generator=gen, device=dev)
+        cases = {"mean": ((rp, g.col, x), {"reduce": "mean"}, mean_vals),
+                 "transposed": ((t_rp, t_col, x), {"edge_weight": w[perm]}, w[perm]),
+                 "uniform_mean": ((rp, ucol, x), {"reduce": "mean"}, mean_vals),
+                 "gat_head": ((gg.row_ptr, gg.col, featv[:, 1, :]), {"edge_weight": alpha},
+                              alpha)}
+        for name, (args, kw, vals) in cases.items():
+            lib = sparse_csr(args[0], args[1], vals.contiguous(), args[2].shape[0])
+            xs = args[2]
+            _, out[f"G_{name}"] = spmm_times(name, args, kw, lambda: torch.sparse.mm(lib, xs))
+            del lib
+        del x, w, t_rp, t_col, perm, gg, featv, alpha
+        torch.cuda.empty_cache()
+    if "sddmm" in parts:
+        a = torch.randn(N, 256, generator=gen, device=dev)
+        b = torch.randn(N, 256, generator=gen, device=dev)
+        ha, hb = a.view(N, 4, 64)[:, 1, :], b.view(N, 4, 64)[:, 2, :]
+        for name, cols in (("clustered", g.col), ("random", ucol)):
+            for dim, p, q in ((256, a, b), (64, ha, hb)):
+                S.csr_sddmm(rp, cols, p, q)
+                out[f"H_{name}_D{dim}_ms"] = cuda_ms(lambda: S.csr_sddmm(rp, cols, p, q))
     log("[paired] " + json.dumps(out))
 
 
@@ -1320,7 +1474,7 @@ def fg_gat_phase():
         log(f"[fg_gat] {route}: " + json.dumps(errs[route]))
         for t in times[route]:
             log(f"[fg_gat]   {t['case']}: " + fmt_times(t)
-                + ("; " + fmt_staged(t) if route == "sddmm" else ""))
+                + "; " + (fmt_staged(t) if route == "sddmm" else fmt_g_stats(t)))
 
     def fwd():
         with torch.no_grad():
@@ -1697,12 +1851,19 @@ def store_phase():
     t = gather_times(f"bench uniform [{batch}] of [{n}, {dim}] f32",
                      lambda: G.gather_rows_masked(data, slots),
                      lambda: G.gather_rows_masked_plain(data, slots), data, slots)
-    t["gather_ms"] = cuda_ms(lambda: table.gather(ids_u))
+    idx_u = slots.long()
+    t.update(gather_ms=cuda_ms(lambda: table.gather(ids_u)),
+             device_ms=graph_ms(lambda: G.gather_rows_masked(data, slots)),
+             row_gather_device_ms=graph_ms(lambda: G.gather_rows(data, slots)),
+             library_device_ms=graph_ms(lambda: torch.index_select(data, 0, idx_u)),
+             tile=G.masked_tile(dim * data.element_size()))
     times["J"].append(t)
     log(f"[store] J uniform: {t['ms']} ms ({t['GBps_delivered']} GB/s delivered, "
-        f"{t['bound_share']} of the {t['bound_ms']} ms bound); A on the same ids "
-        f"{t['row_gather_ms']} ms; plain {t['plain_ms']} ms; index_select {t['library_ms']} ms; "
-        f"ShardedTable.gather {t['gather_ms']} ms")
+        f"{t['bound_share']} of the {t['bound_ms']} ms bound; device {t['device_ms']} ms); A on "
+        f"the same ids {t['row_gather_ms']} ms (device {t['row_gather_device_ms']}); plain "
+        f"{t['plain_ms']} ms; index_select {t['library_ms']} ms (device "
+        f"{t['library_device_ms']}); tiles of {t['tile']} ids; ShardedTable.gather "
+        f"{t['gather_ms']} ms")
     # B (masked) on the bench scatter: every id's row is the last row aimed at it
     (data, slots, rows), kw = calls["B"][0]
     uids, inv = torch.unique(ids_u.long(), return_inverse=True)
@@ -1924,15 +2085,18 @@ def main():
     out.append(bench_entry(S.CSR_SPMM, "csr_spmm", fg_routes["forward"],
                         g_errs + gat_errs["forward"] + fgm_checks["forward"], g_times[0],
                         g_times + gat_times["forward"], call_route="forward",
+                        launches_per_call=g_times[0]["kernels_per_call"],
                         launches_fg_gat=gat["routes"].get("forward", 0),
                         fg_model=fgm, fg_gat=gat))
     out.append(bench_entry(S.CSR_SPMM, "csr_spmm_transposed", fg_routes["transposed"],
                         gt_errs + gat_errs["transposed"] + fgm_checks["transposed"], gt_times[0],
                         gt_times + gat_times["transposed"], call_route="transposed",
+                        launches_per_call=gt_times[0]["kernels_per_call"],
                         launches_fg_gat=gat["routes"].get("transposed", 0),
                         spmm_window_fwd_bwd=g_fb))
     out.append(bench_entry(S.CSR_SDDMM, "csr_sddmm", gat["launches"]["csr_sddmm"],
                         h_errs + gat_errs["sddmm"], h_times[0], h_times + gat_times["sddmm"],
+                        launches_per_call=h_times[0]["kernels_per_call"],
                         launches_path="fg_gat (one forward + backward)"))
     out.append(bench_entry(G.SORTED_GATHER, "sorted_gather", st_launches["sorted_gather"],
                            st_errs["I"], st_times["I"][0], st_times["I"], sweep=st_sweep,
@@ -1948,9 +2112,9 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--sddmm-times"]:
-        sddmm_times_only()
-    elif sys.argv[1:] == ["--paired-times"]:
-        paired_times()
+    if sys.argv[1:2] == ["--paired-times"]:
+        require(set(sys.argv[2:]) <= set(PAIRED_PARTS),
+                f"--paired-times takes parts among {PAIRED_PARTS}, got {sys.argv[2:]}")
+        paired_times(tuple(sys.argv[2:]) or PAIRED_PARTS)
     else:
         main()

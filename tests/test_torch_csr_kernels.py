@@ -204,6 +204,49 @@ def test_csr_sddmm_stats_are_inert_on_the_cpu(graph):
     assert stats.tolist() == [5, 5, 5, 5]
 
 
+@pytest.mark.parametrize("graph", ["clustered", "long_row", "random"])
+@pytest.mark.parametrize("stage", [True, False])
+def test_csr_spmm_stats_are_inert_on_the_cpu(graph, stage):
+    """On the CPU, ``csr_spmm`` with the internal ``_stats`` and ``_stage``
+    runs the plain version: the sums of a float64 numpy loop, and the counts
+    untouched (only the kernel adds to them)."""
+    if graph == "random":
+        rs, rp, col = _csr(seed=11, n=400, n_src=400, hi=12)
+    else:
+        rs, rp, col = _clustered(12, long_row=2000 if graph == "long_row" else None)
+    n, D = len(rp) - 1, 5
+    x = rs.randn(n, D).astype(np.float32)
+    w = rs.rand(len(col)).astype(np.float32)
+    stats = torch.full((4,), 7, dtype=torch.int64)
+    out = K.csr_spmm(_t(rp), _t(col), _t(x), edge_weight=_t(w), _stats=stats, _stage=stage)
+    np.testing.assert_allclose(out.numpy(), _ref_spmm(rp, col, x, w), **TOL)
+    assert stats.tolist() == [7, 7, 7, 7]
+
+
+def test_csr_spmm_checks_its_stats():
+    """``_stats`` must be a contiguous int64 tensor of at least 4 on x's
+    device; it is checked before the device is looked at."""
+    _, rp, col = _csr(seed=13)
+    x = torch.zeros(40, 4)
+    for bad in (torch.zeros(4, dtype=torch.int32), torch.zeros(3, dtype=torch.int64),
+                torch.zeros(8, dtype=torch.int64)[::2], torch.zeros(4, dtype=torch.int64,
+                                                                   device="meta")):
+        with pytest.raises(InvalidInput, match="_stats"):
+            K.csr_spmm(_t(rp), _t(col), x, _stats=bad)
+    ok = torch.zeros(4, dtype=torch.int64)
+    assert torch.equal(K.csr_spmm(_t(rp), _t(col), x, _stats=ok), K.csr_spmm(_t(rp), _t(col), x))
+
+
+def test_spmm_plan_fits_two_ctas_an_sm():
+    """Kernel G's plan: a tile of the bench graph's rows (each edge of row d
+    to d ± 96) spans fewer than SPMM_WINDOW source rows, and the staged
+    kernel's shared memory (edges, row offsets and ranks, two 128-byte slabs
+    of the window) lets two CTAs share an H100 SM's 228 KB."""
+    assert K.SPMM_TILE - 1 + 192 < K.SPMM_WINDOW
+    smem = K.SPMM_EDGE_CAP * 8 + -(-(2 * K.SPMM_TILE + 1) * 4 // 16) * 16 + 2 * K.SPMM_WINDOW * 128
+    assert 2 * (smem + 1024) <= 228 * 1024
+
+
 def test_wrappers_check_their_inputs():
     _, rp, col = _csr(seed=8)
     x = torch.zeros(40, 4)

@@ -548,6 +548,93 @@ def test_csr_sddmm_matches_plain(dev, dtype, D, graph):
     assert (out.cpu() - ref).abs().max().item() <= D * F32_EPS * max(1.0, ref.abs().max().item())
 
 
+def _g_tiles(row_ptr):
+    """Kernel G's tiles (SPMM_TILE rows each) and their edge counts."""
+    n = row_ptr.shape[0] - 1
+    bounds = row_ptr[torch.arange(0, n + S.SPMM_TILE, S.SPMM_TILE).clamp(max=n)].long()
+    return bounds[1:] - bounds[:-1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [256, 64, 6, 3])
+@pytest.mark.parametrize("reduce,weighted", [("sum", False), ("mean", False), ("sum", True)])
+@pytest.mark.parametrize("graph", ["clustered", "clustered_long_row", "uniform"])
+def test_csr_spmm_stages_clustered_tiles(dev, dtype, D, reduce, weighted, graph):
+    """A clustered CSR (every tile staged in shared memory, by G's own
+    counts), the same with a row of 5000 edges (its tile, past the edge cap,
+    computed from device memory) and uniform columns (every tile from device
+    memory); empty rows in each. The staged route is bit-equal to the route
+    through device memory alone (``_stage=False``), two runs are bit-identical,
+    and both are within G's tolerance of the plain version."""
+    if graph == "uniform":
+        row_ptr, col, _ = _csr(long_row=5000)
+    else:
+        row_ptr, col = _clustered_csr(long_row=5000 if graph == "clustered_long_row" else None)
+    K = int((row_ptr[1:] - row_ptr[:-1]).max())
+    n, n_src = row_ptr.shape[0] - 1, int(col.max()) + 1
+    x = torch.randn(n_src, D, generator=_gen(D + 1)).to(dtype)
+    w = torch.rand(col.shape[0], generator=_gen(32)) if weighted else None
+    args = (row_ptr.to(dev), col.to(dev), x.to(dev))
+    kw = dict(reduce=reduce, edge_weight=None if w is None else w.to(dev))
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    before = S.CSR_SPMM.launches
+    out = S.csr_spmm(*args, **kw, _stats=stats)
+    assert S.CSR_SPMM.launches == before + 1 and out.dtype == dtype
+    device_only = torch.zeros(4, dtype=torch.int64, device=dev)
+    assert torch.equal(_bits(out), _bits(S.csr_spmm(*args, **kw, _stage=False, _stats=device_only)))
+    assert torch.equal(_bits(out), _bits(S.csr_spmm(*args, **kw)))
+    ref = S.csr_spmm_plain(row_ptr, col, x, reduce=reduce, edge_weight=w)
+    assert (out.cpu().float() - ref.float()).abs().max().item() <= _g_tol(ref, K, dtype)
+    empty = (row_ptr[1:] == row_ptr[:-1]).nonzero().flatten()
+    assert empty.numel() >= 3 and not out[empty.to(dev)].any()
+    # G's own counts: every tile staged or from device memory
+    edges = _g_tiles(row_ptr)
+    tiles = edges.numel()
+    staged, staged_bytes, from_device, device_edges = stats.tolist()
+    assert staged + from_device == tiles
+    if graph == "clustered":
+        assert (staged, from_device, device_edges) == (tiles, 0, 0)
+    elif graph == "clustered_long_row":
+        assert (staged, from_device) == (tiles - 1, 1) and device_edges == int(edges.max()) >= 5000
+    else:
+        assert (staged, device_edges) == (0, col.shape[0])
+    assert staged_bytes % (D * x.element_size()) == 0 and (staged_bytes > 0) == (staged > 0)
+    assert device_only.tolist() == [0, 0, tiles, col.shape[0]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_csr_spmm_stages_gat_head_views(dev, dtype):
+    """Heads of a [N, 4, 64] tensor (row stride 256) over a clustered CSR
+    with self loops, weighted by attention: staged, bit-equal to the device
+    route, on the forward CSR and on its transpose."""
+    row_ptr, col = _clustered_csr(n=1500)
+    n = row_ptr.shape[0] - 1
+    deg = row_ptr[1:] - row_ptr[:-1]
+    dst = torch.repeat_interleave(torch.arange(n), deg)
+    # a self loop after each row's edges, as the GAT layer's graph
+    keys = torch.cat([dst * n + col.long(), torch.arange(n) * n + torch.arange(n)])
+    order = torch.sort(torch.cat([dst, torch.arange(n)]), stable=True).indices
+    col = (keys[order] % n).to(torch.int32)
+    row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64), (deg + 1).cumsum(0)]).to(torch.int32)
+    featv = torch.randn(n, 4, 64, generator=_gen(33)).to(dtype)
+    alpha = torch.rand(col.shape[0], 4, generator=_gen(34))
+    t_rp, t_col, perm = S.transpose_csr(row_ptr, col, n)
+    fd, ad = featv.to(dev), alpha.to(dev)
+    for rp, cl, wt in ((row_ptr, col, alpha), (t_rp, t_col, alpha[perm])):
+        K = int((rp[1:] - rp[:-1]).max())
+        for h in range(4):
+            head = fd[:, h, :]
+            assert head.stride() == (256, 1)
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            args = (rp.to(dev), cl.to(dev), head)
+            out = S.csr_spmm(*args, edge_weight=wt[:, h].to(dev), _stats=stats)
+            dev_route = S.csr_spmm(*args, edge_weight=wt[:, h].to(dev), _stage=False)
+            assert torch.equal(_bits(out), _bits(dev_route))
+            assert stats[0] == _g_tiles(rp).numel() and stats[2] == 0
+            ref = S.csr_spmm_plain(rp, cl, featv[:, h, :], edge_weight=wt[:, h])
+            assert (out.cpu().float() - ref.float()).abs().max().item() <= _g_tol(ref, K, dtype)
+
+
 @pytest.mark.parametrize("graph", ["random", "clustered"])
 def test_csr_kernels_take_gat_head_views(dev, graph):
     """D = 64 heads of a [N, 4, 64] tensor, row stride 256, no copy; on a
@@ -802,6 +889,43 @@ def test_masked_gather_matches_plain(dev, dtype, D, id_dtype):
     assert G.ROW_GATHER_MASKED.launches == before + 1
     assert torch.equal(_bits(out), _bits(G.gather_rows_masked_plain(table, slots)))
     assert not out[(slots < 0) | (slots >= 700)].any()
+
+
+@pytest.mark.parametrize("dtype,D,vec", [(torch.uint8, 3, 1), (torch.uint8, 6, 2),
+                                         (torch.bfloat16, 1, 2), (torch.float32, 1, 4),
+                                         (torch.float32, 2, 8), (torch.float32, 16, 16),
+                                         (torch.float32, 256, 16), (torch.bfloat16, 520, 16),
+                                         (torch.float32, 20000, 16)])
+@pytest.mark.parametrize("case", ["duplicates", "partial_tile"])
+def test_masked_gather_any_width(dev, dtype, D, vec, case):
+    """Kernel J at every vector width (16-, 8-, 4-, 2- and 1-byte loads),
+    4 loads in flight a thread (tiles of fewer than 8 vectors a thread: 8 KB
+    tiles) and 8 (one id a tile of an 80 KB row); duplicated slots, and a
+    batch whose last tile ends partway through a batch of loads."""
+    n = 300 if D >= 20000 else 3000
+    g = _gen(D + n)
+    if dtype == torch.uint8:
+        table = torch.randint(0, 256, (n, D), generator=g, dtype=torch.uint8)
+    else:
+        table = _store_table(n, D, dtype, seed=D)
+    rb = D * table.element_size()
+    tile = G.masked_tile(rb)
+    B = 5 * tile + tile // 2 + 1 if case == "partial_tile" else 4 * tile
+    slots = torch.randint(-3, n + 3, (B,), generator=g, dtype=torch.int64)
+    if case == "duplicates":
+        slots = slots[torch.randint(0, max(B // 8, 1), (B,), generator=g)]
+    on_card = table.to(dev)
+    out_card = torch.empty(B, D, dtype=dtype, device=dev)
+    assert G.vector_bytes(rb, on_card.data_ptr(), out_card.data_ptr()) == vec
+    before = G.ROW_GATHER_MASKED.launches
+    out = G.gather_rows_masked(on_card, slots.to(dev)).cpu()
+    assert G.ROW_GATHER_MASKED.launches == before + 1
+    ref = G.gather_rows_masked_plain(table, slots)
+    if dtype == torch.uint8:
+        assert torch.equal(out, ref)
+    else:
+        assert torch.equal(_bits(out), _bits(ref))
+    assert not out[(slots < 0) | (slots >= n)].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

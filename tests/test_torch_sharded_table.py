@@ -270,6 +270,14 @@ def test_unported_parts_raise():
                     local_kernel="window")
 
 
+@pytest.mark.parametrize("row_bytes,tile", [(1024, 8), (64, 128), (12, 256), (1040, 7),
+                                            (8 * 1024, 1), (80_000, 1)])
+def test_masked_tile_fills_its_bytes(row_bytes, tile):
+    """Kernel J's tile: as many ids as fill MASKED_TILE_BYTES of output,
+    one id a thread at most, at least one."""
+    assert K.masked_tile(row_bytes) == tile
+
+
 def test_kernel_plain_contracts():
     """Kernels I and J and B's masked route on the CPU: the plain versions
     their wrappers run there, against numpy."""

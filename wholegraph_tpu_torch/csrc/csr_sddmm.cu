@@ -30,9 +30,10 @@
 //     row, one or two vectors a lane a pass (NCH, two only for rows of more
 //     than 32 vectors). The group holds the current row of a in registers,
 //     fetches the columns of G edges and stores their sums in one access
-//     each, and reduces each dot with xor shuffles. This is the only place
-//     the window rule lives, and it keeps such tiles at the occupancy of a
-//     kernel without shared memory. Exact on any CSR.
+//     each, and reduces each dot with xor shuffles. The window rule is
+//     csr_tiles.cuh's (tile_staged), shared with kernel G, and this kernel
+//     alone applies it; it keeps such tiles at the occupancy of a kernel
+//     without shared memory. Exact on any CSR.
 //  2. csr_sddmm_window_kernel (512 threads, one CTA an SM) takes the tiles
 //     that step 1 marked; the others return at once. It stages the tile's
 //     source rows b[lo..hi] and its rows of a in shared memory in column
@@ -59,56 +60,17 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
+
+#include "csr_tiles.cuh"
 
 namespace {
 
+using namespace wg;
+
 constexpr int THREADS = 512;  // the window kernel's CTA
 constexpr int DEV_THREADS = 256;  // the device-memory kernel's CTA
-constexpr int DEV_WARPS = DEV_THREADS / 32;
-constexpr int SLAB_BYTES = 128;
 constexpr int EPT = 8;  // edges a thread: edge_cap <= EPT * THREADS
-constexpr int64_t MAX_DYNAMIC_SMEM = 227 * 1024 - 1024;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-template <typename P>
-__device__ __forceinline__ void copy_to_shared(P* dst, const P* src) {
-  if constexpr (sizeof(P) == 16) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-  } else if constexpr (sizeof(P) >= 4) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
-                 "n"(int(sizeof(P))) : "memory");
-  } else {
-    *dst = *src;
-  }
-}
-
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ int32_t clamp_col(int64_t c, int64_t n_src) {
-  return int32_t(c < 0 ? 0 : (c >= n_src ? n_src - 1 : c));
-}
-
-__device__ __forceinline__ void add_stat(unsigned long long* stats, int i, int64_t v) {
-  if (stats) atomicAdd(stats + i, static_cast<unsigned long long>(v));
-}
 
 // Step 1: every tile's span; the tiles it does not stage, from device memory,
 // NCH vectors of a row a lane in each pass.
@@ -120,7 +82,6 @@ csr_sddmm_device_kernel(const int32_t* __restrict__ row_ptr, const int32_t* __re
                         int n_vec, int group, int tile, int window, int edge_cap,
                         int32_t* __restrict__ spans, unsigned long long* stats) {
   using P = Pack<T, VEC>;
-  __shared__ int32_t red_lo[DEV_WARPS], red_hi[DEV_WARPS];
   const int tid = threadIdx.x, lane = tid & 31;
   const int64_t d0 = int64_t(blockIdx.x) * tile;
   const int na = int(n_rows - d0 < tile ? n_rows - d0 : tile);
@@ -134,37 +95,13 @@ csr_sddmm_device_kernel(const int32_t* __restrict__ row_ptr, const int32_t* __re
     }
     return;
   }
-  if (ne <= edge_cap) {  // the tile's least and greatest clamped column
-    int32_t l = INT_MAX, h = -1;
-    for (int i = tid; i < ne; i += DEV_THREADS) {
-      const int32_t c = clamp_col(col[e0 + i], n_src);
-      l = c < l ? c : l;
-      h = c > h ? c : h;
+  int32_t lo, hi;
+  if (tile_staged<DEV_THREADS>(col, e0, ne, n_src, window, edge_cap, lo, hi)) {
+    if (tid == 0) {  // step 2 stages this tile
+      span[0] = lo;
+      span[1] = hi;
     }
-    for (int o = 16; o; o >>= 1) {
-      const int32_t ol = __shfl_xor_sync(0xffffffffu, l, o);
-      const int32_t oh = __shfl_xor_sync(0xffffffffu, h, o);
-      l = ol < l ? ol : l;
-      h = oh > h ? oh : h;
-    }
-    if (lane == 0) {
-      red_lo[tid >> 5] = l;
-      red_hi[tid >> 5] = h;
-    }
-    __syncthreads();
-    int32_t lo = red_lo[0], hi = red_hi[0];
-#pragma unroll
-    for (int w = 1; w < DEV_WARPS; ++w) {
-      lo = red_lo[w] < lo ? red_lo[w] : lo;
-      hi = red_hi[w] > hi ? red_hi[w] : hi;
-    }
-    if (int64_t(hi) - lo < window) {  // step 2 stages this tile
-      if (tid == 0) {
-        span[0] = lo;
-        span[1] = hi;
-      }
-      return;
-    }
+    return;
   }
   if (tid == 0) {
     span[0] = 0;

@@ -34,13 +34,9 @@
 //     at 64-byte rows direct reads beat the window at densities 0.8 to
 //     0.2 although they make a request a row, so sectors, not 128-byte
 //     lines, are the unit.
-//  3. Direct route: every thread keeps U vector loads in flight before it
-//     stores any of them, over the flattened (row, vector) index of the
-//     tile's output: U = 8 where the tile holds 8 or more vectors a thread
-//     (1 KB rows in tiles of 32), else 4. At 8 the 16-byte kernel takes 52
-//     registers against 32, so half the CTAs an SM: that lost at 64-byte
-//     rows (by up to 29 % at density 0.2) and won at 1 KB rows (by up to
-//     1.6 %, every tile windowed).
+//  3. Direct route: the shared drain of direct_gather.cuh (also kernel J's),
+//     8 loads in flight a thread where the tile holds 8 or more vectors a
+//     thread (1 KB rows in tiles of 32), else 4.
 //  4. Window route: the span arrives by `cp.async` (16-, 8- or 4-byte, plain
 //     loads for narrower vectors), one barrier, then the same drain out of
 //     shared memory. Not by `cp.async.bulk` chunks on mbarriers: on device
@@ -59,34 +55,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+#include "direct_gather.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
+using wg::copy_to_shared;
+using wg::drain;
+using wg::MAX_DYNAMIC_SMEM;
+constexpr int THREADS = wg::GATHER_THREADS;
 constexpr int WARPS = THREADS / 32;
-constexpr int64_t MAX_DYNAMIC_SMEM = 227 * 1024 - 1024;  // of the SM's 227 KB, static arrays aside
-
-__device__ __forceinline__ int64_t load_id(const void* ids, int ids64, int64_t i) {
-  return ids64 ? static_cast<const int64_t*>(ids)[i]
-               : int64_t(static_cast<const int32_t*>(ids)[i]);
-}
-
-template <typename V>
-__device__ __forceinline__ void copy_to_shared(V* dst, const V* src) {
-  if constexpr (sizeof(V) == 16) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-  } else if constexpr (sizeof(V) >= 4) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
-                 "n"(int(sizeof(V))) : "memory");
-  } else {
-    *dst = *src;
-  }
-}
-
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
 
 // 32-byte sectors touched by bytes [a, a + n), n > 0
 __device__ __forceinline__ int64_t sectors(uint64_t a, uint64_t n) {
@@ -96,36 +74,6 @@ __device__ __forceinline__ int64_t sectors(uint64_t a, uint64_t n) {
 // bytes of the ids' part of shared memory, rounded up so the window starts 16-byte aligned
 __host__ __device__ __forceinline__ int64_t ids_bytes(int tile) {
   return (int64_t(tile) * 8 + 15) / 16 * 16;
-}
-
-// Walks the tile's output vectors k = tid, tid + THREADS, ... in batches of
-// U: `load(id, v)` for each (its row id, vector) before any store.
-template <typename V, int U, typename Load>
-__device__ __forceinline__ void drain(V* __restrict__ dst, const int64_t* tile_ids, int m, int vpr,
-                                      Load load) {
-  const int total = m * vpr;
-  const int q = THREADS / vpr, r = THREADS % vpr;
-  int i = threadIdx.x / vpr, v = threadIdx.x % vpr;
-  for (int k0 = threadIdx.x; k0 < total; k0 += THREADS * U) {
-    V val[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      val[u] = V();
-      if (k0 + u * THREADS < total) {
-        const int64_t id = tile_ids[i];
-        if (id >= 0) val[u] = load(id, v);
-      }
-      i += q;
-      v += r;
-      if (v >= vpr) {
-        v -= vpr;
-        ++i;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (k0 + u * THREADS < total) dst[k0 + u * THREADS] = val[u];
-  }
 }
 
 template <typename V, int U>
@@ -150,8 +98,7 @@ sorted_gather_kernel(const V* __restrict__ table, const void* __restrict__ ids, 
   int64_t lo = INT64_MAX, hi = -1;
   uint32_t sec = 0, nv = 0;
   for (int i = threadIdx.x; i < m; i += THREADS) {
-    int64_t id = load_id(ids, ids64, t0 + i);
-    if (id < 0 || id >= n_rows) id = zero_invalid ? -1 : (id < 0 ? 0 : n_rows - 1);
+    const int64_t id = wg::tile_id(wg::load_id(ids, ids64, t0 + i), n_rows, zero_invalid);
     tile_ids[i] = id;
     if (id >= 0) {
       lo = id < lo ? id : lo;
@@ -208,7 +155,8 @@ sorted_gather_kernel(const V* __restrict__ table, const void* __restrict__ ids, 
   const int64_t nvec = (hi - lo + 1) * vpr;
   const V* src = table + lo * vpr;
   for (int64_t k = threadIdx.x; k < nvec; k += THREADS) copy_to_shared(win + k, src + k);
-  wait_copies();
+  wg::commit_copies();
+  wg::wait_copies<0>();
   __syncthreads();
   drain<V, U>(dst, tile_ids, m, vpr, [&](int64_t id, int v) { return win[(id - lo) * vpr + v]; });
 }
@@ -239,9 +187,8 @@ cudaError_t launch(const void* table, const void* ids, int ids64, void* out, int
         window, zero_invalid, static_cast<unsigned long long*>(stats));
     return cudaGetLastError();
   };
-  // loads in flight a thread: 8 where a tile holds 8 or more vectors a thread, else 4
   static int64_t raised8 = 48 * 1024, raised4 = 48 * 1024;
-  return int64_t(tile) * vpr >= 8 * THREADS ? go(sorted_gather_kernel<V, 8>, raised8)
+  return wg::loads_in_flight(tile, vpr) == 8 ? go(sorted_gather_kernel<V, 8>, raised8)
                                              : go(sorted_gather_kernel<V, 4>, raised4);
 }
 

@@ -38,7 +38,7 @@ ROW_SCATTER = kernels.Kernel(
 )
 ROW_GATHER_MASKED = kernels.Kernel(
     "row_gather_masked", "row_gather.cu", "wg_row_gather_masked",
-    [_P, _P, _I, _P, _L, _L, _L, _I, _P],
+    [_P, _P, _I, _P, _L, _L, _L, _I, _I, _P],
     replaces="wholegraph_tpu/ops/gather_pallas.py:1028",  # _masked_gather_kernel
 )
 SORTED_GATHER = kernels.Kernel(
@@ -169,6 +169,16 @@ def scatter_rows_masked(table: torch.Tensor, slots: torch.Tensor, rows: torch.Te
 # Kernel J: masked row gather
 # ---------------------------------------------------------------------------
 
+# output bytes a CTA of kernel J aims at: tiles of 8 ids of 1 KB rows (on an
+# H100, tools/kernel_variants.py: 16 and 32 KB tiles 0.5 % slower, 4 KB 3.5 %)
+MASKED_TILE_BYTES = 8 * 1024
+
+
+def masked_tile(row_bytes: int) -> int:
+    """Ids per CTA of kernel J for rows of ``row_bytes``: as many as fill
+    MASKED_TILE_BYTES of output, from 1 to 256 (one id a thread at most)."""
+    return max(1, min(256, MASKED_TILE_BYTES // max(row_bytes, 1)))
+
 
 def gather_rows_masked_plain(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """``out[i] = table[slots[i]]`` for ``0 <= slots[i] < N``, else a zero row."""
@@ -182,16 +192,19 @@ def gather_rows_masked(table: torch.Tensor, slots: torch.Tensor) -> torch.Tensor
     """Rows of ``table`` [N, D] at ``slots`` [B]; a slot outside ``[0, N)``
     gives a zero row and reads nothing (the contract of
     ``gather_pallas.gather_rows_masked``, whose skipped rows are garbage,
-    made zero). Kernel J on CUDA."""
+    made zero). Kernel J on CUDA: kernel I's direct reads over tiles of
+    :func:`masked_tile` ids."""
     _check_rows(table, slots)
     if not on_cuda(table, slots):
         return gather_rows_masked_plain(table, slots)
     slots, out, row_bytes = _gather_out(table, slots)
     if out.numel() == 0 or table.shape[0] == 0:
         return out.zero_()
+    vec = vector_bytes(row_bytes, table.data_ptr(), out.data_ptr())
+    tile = masked_tile(row_bytes)
+    check_input(tile * (row_bytes // vec) < 2**31, "a tile of rows must hold fewer than 2^31 vectors")
     ROW_GATHER_MASKED(table.data_ptr(), slots.data_ptr(), int(slots.dtype == torch.int64),
-                      out.data_ptr(), table.shape[0], slots.shape[0], row_bytes,
-                      vector_bytes(row_bytes, table.data_ptr(), out.data_ptr()),
+                      out.data_ptr(), table.shape[0], slots.shape[0], row_bytes, vec, tile,
                       kernels.cuda_stream(table.device))
     return out
 

@@ -40,7 +40,7 @@ NEIGHBOR_AGG = kernels.Kernel(
 )
 CSR_SPMM = kernels.Kernel(
     "csr_spmm", "csr_spmm.cu", "wg_csr_spmm",
-    [_P, _P, _P, _P, _L, _L, _P, _L, _L, _L, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _L, _L, _P, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     replaces="wholegraph_tpu/ops/spmm_pallas.py:201",  # _spmm_window_kernel
 )
 CSR_SDDMM = kernels.Kernel(
@@ -56,6 +56,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SDDMM_TILE = 128
 SDDMM_WINDOW = 384
 SDDMM_EDGE_CAP = 4096
+# kernel G's: a tile of 128 rows of a CSR whose edges reach d ± 96 spans at
+# most 320 source rows; two 40 KB slabs and 28 KB of edges keep two CTAs an SM
+SPMM_TILE = 128
+SPMM_WINDOW = 320
+SPMM_EDGE_CAP = 3584
 
 # edges per step of the plain versions: an unchunked [E, D] intermediate is
 # 21 GB at the bench shape (the chunking of spmm_pallas._segment_spmm_chunked)
@@ -192,20 +197,36 @@ def csr_spmm_plain(row_ptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor, *,
     return out.to(x.dtype)
 
 
+def _check_stats(stats: Optional[torch.Tensor], device: torch.device) -> None:
+    check_input(stats is None or (stats.dtype == torch.int64 and stats.numel() >= 4
+                                  and stats.device == device and stats.is_contiguous()),
+                "_stats must be a contiguous int64 tensor of 4 on the operands' device")
+
+
 def csr_spmm(row_ptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor, *,
              reduce: str = "sum", edge_weight: Optional[torch.Tensor] = None,
-             route: str = "forward") -> torch.Tensor:
+             route: str = "forward", _stats: Optional[torch.Tensor] = None,
+             _stage: bool = True) -> torch.Tensor:
     """Kernel G: the SpMM over a destination-sorted CSR, ``out[d] =
     Σ_{e=row_ptr[d]}^{row_ptr[d+1]-1} w_e · x[clip(col[e])]`` (``w_e = 1``
     without weights), accumulated in f32 and returned in x's dtype (f32 or
     bf16). ``mean`` divides by ``max(deg_d, 1)``, the edge count; an empty
     row gives zeros. ``x`` [n_src, D] may have a row stride. ``route``
     labels the launch in ``CSR_SPMM.routes``. No gradient: see
-    :class:`CsrSpmm`."""
+    :class:`CsrSpmm`.
+
+    ``_stats`` and ``_stage`` are internal, for reports and checks.
+    ``_stats``: an int64 tensor of 4 on x's device to which the kernel adds
+    the tiles it staged in shared memory, the bytes of x it staged, the
+    tiles it left to device memory and their edges; the plain version
+    leaves it as it is. ``_stage=False`` computes every tile from device
+    memory (bit-identical: the kernel adds each row's edges in one order on
+    either route)."""
     _check_csr(row_ptr, col)
     check_input(reduce in ("sum", "mean"), f"unknown reduce {reduce!r}")
     check_input(x.dim() == 2, f"x must be [n_src, D], got {tuple(x.shape)}")
     check_input(x.dtype in _DTYPE_CODE, f"x dtype {x.dtype} not in {list(_DTYPE_CODE)}")
+    _check_stats(_stats, x.device)
     E = col.shape[0]
     tensors = [row_ptr, col, x]
     if edge_weight is not None:
@@ -221,10 +242,13 @@ def csr_spmm(row_ptr: torch.Tensor, col: torch.Tensor, x: torch.Tensor, *,
     x = _rows(x)
     out = torch.empty((n, D), dtype=x.dtype, device=x.device)
     w = None if edge_weight is None else edge_weight.to(torch.float32).contiguous()
+    spans = torch.empty((2 * -(-n // SPMM_TILE),), dtype=torch.int32, device=x.device)
     row_ptr, col = _index32(row_ptr), _index32(col)
     CSR_SPMM(row_ptr.data_ptr(), col.data_ptr(), None if w is None else w.data_ptr(),
              x.data_ptr(), x.stride(0), x.shape[0], out.data_ptr(), out.stride(0), n, D,
-             int(reduce == "mean"), _DTYPE_CODE[x.dtype], _vec(x, out),
+             int(reduce == "mean"), _DTYPE_CODE[x.dtype], _vec(x, out), SPMM_TILE,
+             SPMM_WINDOW if _stage else 0,
+             SPMM_EDGE_CAP, spans.data_ptr(), None if _stats is None else _stats.data_ptr(),
              kernels.cuda_stream(x.device), route=route)
     return out
 
@@ -268,9 +292,7 @@ def csr_sddmm(row_ptr: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
         return csr_sddmm_plain(row_ptr, col, a, b)
     if E == 0 or a.shape[1] == 0:
         return torch.zeros((E,), dtype=torch.float32, device=a.device)
-    check_input(_stats is None or (_stats.dtype == torch.int64 and _stats.numel() >= 4
-                                   and _stats.device == a.device and _stats.is_contiguous()),
-                "_stats must be a contiguous int64 tensor of 4 on the operands' device")
+    _check_stats(_stats, a.device)
     a, b = _rows(a), _rows(b)
     out = torch.empty((E,), dtype=torch.float32, device=a.device)
     spans = torch.empty((2 * -(-a.shape[0] // SDDMM_TILE),), dtype=torch.int32, device=a.device)

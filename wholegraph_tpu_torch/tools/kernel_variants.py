@@ -1,0 +1,426 @@
+"""Design alternatives of kernels G and J, timed against the kernels as
+built: ``python3 -m wholegraph_tpu_torch.tools.kernel_variants [--out FILE]``.
+
+Each variant is the current source of ``csrc/csr_spmm.cu`` (G) or
+``csrc/row_gather.cu`` (J, with ``direct_gather.cuh`` inlined where the
+variant changes it) with one stated change, applied by text substitution
+that must match: a variant whose text no longer matches the source is
+reported as such and not built, so the tool never holds the kernels to its
+own copy of them. The variants are built with the port's ``nvcc`` flags into
+``wholegraph_tpu_torch/_build/variants/`` (one ``nvcc`` each, all started
+together) and called through the kernel's own wrapper, its ``Kernel``
+pointed at the variant's entry for the call. Each variant's output is held
+bit-equal to the kernel's, except a probe's: a probe removes one step of a
+kernel, so that the time of that step is the kernel's time less the
+probe's, and its output is not kept.
+
+* G at ``bench_spmm_clustered``'s shapes (``clustered_csr(2^20, 16, 192)``,
+  x [2^20, 256] f32): mean, weighted sum, and the weighted sum over the
+  transposed CSR; variants: two barriers a slab, rows in CSR order (no
+  rank by degree), ranks k and n - 1 - k on one thread of a 256-thread CTA,
+  one vector a thread with ranks folded (snake order), the tile decision
+  folded into the window kernel (two launches a call, no span kernel),
+  slabs of 64 bytes at three CTAs an SM; probes: the span and rows
+  launches alone (the window kernel returns at once), the window kernel
+  without its edge loop (staging, ranks and stores), the edge loop without
+  reads of x from shared memory. Beside them, each G kernel's registers,
+  spills and shared memory as ``-Xptxas -v`` gave them in the build.
+* J at ``bench_gather``'s shapes (2^19 uniform ids into a 4,000,000 x 256
+  f32 table): tiles of 4, 8, 16 and 32 KB of output (``MASKED_TILE_BYTES``);
+  variants: streaming stores (``st.global.cs``), loads through the
+  read-only path (``ld.global.nc``), persistent CTAs that prefetch the next
+  tile's ids; beside kernel A and ``index_select``.
+
+Every function is timed in turns, three rounds, by CUDA events (the median)
+and once as device time from a CUDA graph of 20 calls. Prints one JSON
+line (and, with ``--out``, writes it). Needs one CUDA card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from .. import kernels
+from ..full_graph import clustered_csr
+from ..ops import gather_kernels as G
+from ..ops import spmm_kernels as S
+
+VARIANT_DIR = os.path.join(kernels.BUILD_DIR, "variants")
+
+_G_SLAB_LOOP = """  for (int s = 0; s < n_slabs; ++s) {
+    wait_copies<0>();
+    // slab s, and before the first the edges' ranks, are in; every thread is
+    // done with slab s - 1, whose buffer slab s + 1 now fills while s is used
+    __syncthreads();
+    if (s + 1 < n_slabs) stage(s + 1);
+"""
+_G_PAIRS_END = """      if (i1 < sv) *reinterpret_cast<P*>(o + int64_t(i1) * VEC) = o1;
+    }
+"""
+_G_PAIR_HEAD = """    for (int p = tid; p < na * tpr; p += THREADS) {
+      const int slot = p / tpr, q = p - slot * tpr;
+      const int r = rank_order[slot];
+"""
+_G_SNAKE = """    const P* buf = slabs + int64_t(s & 1) * window * sv_max;
+    for (int p = tid; p < na * sv; p += THREADS) {
+      const int slot = p / sv, q = p - slot * sv;
+      int idx = slot;
+      if (THREADS % sv == 0) {  // every other pass of the threads in reverse rank order
+        const int S = THREADS / sv, k = slot / S, j = slot - k * S;
+        const int c = na - k * S < S ? na - k * S : S;
+        if (k & 1) idx = k * S + (c - 1 - j);
+      }
+      const int r = rank_order[idx];
+      const int e_beg = rows[r], e_end = rows[r + 1];
+      float a0[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) a0[i] = 0.0f;
+#pragma unroll 4
+      for (int e = e_beg; e < e_end; ++e) {
+        const Edge ed = edges[e];
+        const P y0 = buf[ed.off + q];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) a0[i] = __fmaf_rn(ed.w, to_f32(y0.v[i]), a0[i]);
+      }
+      const int deg = e_end - e_beg;
+      const float denom = float(deg > 1 ? deg : 1);
+      P o0;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) o0.v[i] = from_f32<T>(mean ? a0[i] / denom : a0[i]);
+      *reinterpret_cast<P*>(out + (d0 + r) * ldo + int64_t(v0 + q) * VEC) = o0;
+    }
+"""
+_J_KERNEL_END = """  wg::drain<V, U>(out + t0 * vpr, tile_ids, m, vpr,
+                  [&](int64_t id, int v) { return table[id * vpr + v]; });
+}
+"""
+_J_PERSISTENT = """  const int64_t n_tiles = (n_ids + tile - 1) / tile;
+  int64_t next = 0;
+  if (threadIdx.x < tile && t0 + threadIdx.x < n_ids) next = wg::load_id(ids, ids64, t0 + threadIdx.x);
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t b = t * tile;
+    const int mt = int(n_ids - b < tile ? n_ids - b : tile);
+    if (threadIdx.x < mt) tile_ids[threadIdx.x] = wg::tile_id(next, n_rows, 1);
+    __syncthreads();
+    const int64_t tn = t + gridDim.x;
+    if (tn < n_tiles && threadIdx.x < tile && tn * tile + threadIdx.x < n_ids)
+      next = wg::load_id(ids, ids64, tn * tile + threadIdx.x);
+    wg::drain<V, U>(out + b * vpr, tile_ids, mt, vpr,
+                    [&](int64_t id, int v) { return table[id * vpr + v]; });
+    __syncthreads();
+  }
+}
+"""
+
+
+_G_WINDOW_HEAD = """                       const int32_t* __restrict__ spans, unsigned long long* stats) {
+  using P = Pack<T, VEC>;
+  const int32_t lo = spans[2 * int64_t(blockIdx.x)], hi = spans[2 * int64_t(blockIdx.x) + 1];
+  if (hi < lo) return;
+"""
+_G_FOLDED_HEAD = """                       int32_t* __restrict__ spans, unsigned long long* stats) {
+  using P = Pack<T, VEC>;
+  int32_t lo, hi;
+  {
+    const int64_t t0 = int64_t(blockIdx.x) * tile;
+    const int nt = int(n_rows - t0 < tile ? n_rows - t0 : tile);
+    const int64_t nte = int64_t(row_ptr[t0 + nt]) - row_ptr[t0];
+    const bool staged =
+        tile_staged<THREADS>(col, row_ptr[t0], nte, n_src, window, edge_cap, lo, hi);
+    if (threadIdx.x == 0) {
+      spans[2 * int64_t(blockIdx.x)] = staged ? lo : 0;
+      spans[2 * int64_t(blockIdx.x) + 1] = staged ? hi : -1;
+    }
+    if (!staged) return;
+  }
+"""
+_G_SPAN_LAUNCH = """  csr_spmm_span_kernel<<<tiles, SPAN_THREADS, 0, stream>>>(rp, cl, n_src, n_rows, tile, window,
+                                                           edge_cap, spans, stats);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+"""
+_G_SLAB_READ = "        const P y0 = buf[ed.off + i0], y1 = buf[ed.off + i1];\n"
+_G_NO_X_READ = """        P y0, y1;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) y0.v[i] = y1.v[i] = from_f32<T>(__int_as_float(ed.off));
+"""
+
+
+class Stale(Exception):
+    """A substitution that no longer matches the current source."""
+
+
+def _sub(text: str, old: str, new: str) -> str:
+    if old not in text:
+        raise Stale(old)
+    return text.replace(old, new)
+
+
+def _each(recipes: dict) -> tuple:
+    """({name: source}, [names whose substitutions no longer match])."""
+    built, stale = {}, []
+    for name, make in recipes.items():
+        try:
+            built[name] = make()
+        except (Stale, ValueError):  # ValueError: str.index found no anchor
+            stale.append(name)
+    return built, stale
+
+
+def g_variants(src: str) -> tuple:
+    def snake():
+        pairs = src.index("    const int tpr = (sv + 1) / 2;")
+        pairs_end = src.index(_G_PAIRS_END, pairs) + len(_G_PAIRS_END)
+        return src[:pairs] + _G_SNAKE + src[pairs_end:]
+
+    return _each({
+        "G two barriers a slab": lambda: _sub(_sub(src, _G_SLAB_LOOP, """  for (int s = 0; s < n_slabs; ++s) {
+    if (s + 1 < n_slabs) {
+      stage(s + 1);
+      wait_copies<1>();
+    } else {
+      wait_copies<0>();
+    }
+    __syncthreads();
+"""), _G_PAIRS_END + "  }\n}\n", _G_PAIRS_END + "    __syncthreads();\n  }\n}\n"),
+        "G rows in CSR order": lambda: _sub(src, "    rank_order[rank] = r;",
+                                            "    rank_order[r] = r;"),
+        "G ranks k and n-1-k a thread, 256 threads": lambda: _sub(_sub(
+            src, _G_PAIR_HEAD, """    const int half = (na + 1) / 2;
+    for (int p = tid; p < half * tpr; p += THREADS)
+      for (int h = 0; h < 2; ++h) {
+      const int slot = p / tpr, q = p - slot * tpr;
+      if (h && na - 1 - slot == slot) break;
+      const int r = rank_order[h ? na - 1 - slot : slot];
+"""), "constexpr int THREADS = 512; ", "constexpr int THREADS = 256; "),
+        "G one vector a thread, snake order": snake,
+        "G tile decision in the window kernel, two launches": lambda: _sub(_sub(
+            src, _G_WINDOW_HEAD, _G_FOLDED_HEAD), _G_SPAN_LAUNCH, "  cudaError_t e;\n"),
+        "G slabs of 64 bytes, three CTAs an SM": lambda: _sub(_sub(
+            src, "__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS, 3)"),
+            "const int slab_vecs = SLAB_BYTES / int(sizeof(P));",
+            "const int slab_vecs = 64 / int(sizeof(P));"),
+        "probe: G span and rows launches alone": lambda: _sub(
+            src, "  if (hi < lo) return;\n", "  if (hi < lo || lo >= 0) return;\n"),
+        "probe: G window kernel without its edge loop": lambda: _sub(
+            src, "      const int e_beg = rows[r], e_end = rows[r + 1];\n",
+            "      const int e_beg = rows[r], e_end = e_beg;\n"),
+        "probe: G edge loop without reads of x": lambda: _sub(src, _G_SLAB_READ, _G_NO_X_READ),
+    })
+
+
+def j_variants(src: str, header: str) -> tuple:
+    def inline(h: str, s: str) -> str:
+        return _sub(s, '#include "direct_gather.cuh"',
+                    h.replace("namespace wg {", "namespace wgv {")).replace("wg::", "wgv::")
+
+    def persistent():
+        head = src[:src.index(_J_KERNEL_END)]
+        text = (head[:head.rindex("  const int64_t t0")]
+                + "  const int64_t t0 = int64_t(blockIdx.x) * tile;\n" + _J_PERSISTENT
+                + src[src.index(_J_KERNEL_END) + len(_J_KERNEL_END):])
+        return _sub(text, """  const unsigned blocks = unsigned((n_ids + tile - 1) / tile);
+  auto kernel = wg::loads_in_flight(tile, vpr) == 8 ? masked_gather_kernel<V, 8>
+                                                     : masked_gather_kernel<V, 4>;""",
+                    """  unsigned blocks = unsigned((n_ids + tile - 1) / tile);
+  auto kernel = wg::loads_in_flight(tile, vpr) == 8 ? masked_gather_kernel<V, 8>
+                                                     : masked_gather_kernel<V, 4>;
+  int per_sm = 0;  // one wave of resident CTAs
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, wg::GATHER_THREADS, 0);
+  if (blocks > unsigned(132 * per_sm)) blocks = unsigned(132 * per_sm);""")
+
+    store = "dst[k0 + u * GATHER_THREADS] = val[u];"
+    return _each({
+        "J streaming stores": lambda: inline(_sub(
+            header, store, "__stcs(&dst[k0 + u * GATHER_THREADS], val[u]);"), src),
+        "J read-only loads": lambda: _sub(src, "{ return table[id * vpr + v]; }",
+                                          "{ return __ldg(&table[id * vpr + v]); }"),
+        "J persistent CTAs": persistent,
+    })
+
+
+def ptxas(log: str, match: str) -> dict:
+    """{kernel: what ``-Xptxas -v`` reported for it} for the entry functions
+    whose mangled name holds ``match``: registers, barriers and static
+    shared memory, and the stack and spills."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1) if match in m.group(1) else None
+            if name:
+                out.setdefault(name, [])
+        elif name and ("Used" in line or "spill" in line) and line.strip() not in out[name]:
+            out[name].append(line.strip().replace("ptxas info    : ", ""))
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def build(variants: dict) -> tuple:
+    """({name: ctypes library}, {name: compiler output}), all nvcc
+    processes started together."""
+    nvcc = kernels.find_nvcc()
+    if nvcc is None:
+        raise SystemExit("kernel_variants: nvcc not found")
+    os.makedirs(VARIANT_DIR, exist_ok=True)
+    procs = {}
+    for i, (name, text) in enumerate(variants.items()):
+        src = os.path.join(VARIANT_DIR, f"variant{i}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        lib = os.path.join(VARIANT_DIR, f"libvariant{i}.so")
+        procs[name] = (lib, subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-I", kernels.CSRC,
+                                              "-o", lib, src], stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    libs, logs = {}, {}
+    for name, (lib, p) in procs.items():
+        out, _ = p.communicate()
+        if p.returncode:
+            raise SystemExit(f"kernel_variants: {name} did not build:\n{out}")
+        libs[name], logs[name] = ctypes.CDLL(lib), out
+    return libs, logs
+
+
+@contextlib.contextmanager
+def launching(kern: kernels.Kernel, lib: ctypes.CDLL):
+    """``kern``'s wrapper launches ``lib``'s entry of the same name."""
+    kern._fn or kern._load()
+    fn = getattr(lib, kern.entry)
+    fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
+    saved, kern._fn = kern._fn, fn
+    try:
+        yield
+    finally:
+        kern._fn = saved
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()  # the card is busy while the host enqueues the timed calls
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(fn, iters=20):
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(g.replay, iters=5, warmup=1) / iters
+
+
+def in_turns(fns: dict) -> dict:
+    rounds = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            rounds[k].append(cuda_ms(fn))
+    return {k: {"ms": statistics.median(v), "device_ms": graph_ms(fns[k])} for k, v in rounds.items()}
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: needs a CUDA card")
+    kernels.build_all()
+    read = lambda name: open(os.path.join(kernels.CSRC, name)).read()  # noqa: E731
+    (gv, g_stale), (jv, j_stale) = g_variants(read("csr_spmm.cu")), j_variants(
+        read("row_gather.cu"), read("direct_gather.cuh"))
+    libs, logs = build({**gv, **jv})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    with open(os.path.splitext(kernels.library_path(os.path.join(kernels.CSRC, "csr_spmm.cu")))[0]
+              + ".log") as f:
+        g_log = f.read()
+    out = {"device": smi, "stale": g_stale + j_stale,
+           "ptxas": {"G": ptxas(g_log, "csr_spmm"),
+                     **{name: ptxas(logs[name], "csr_spmm_window") for name in gv}}}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+
+    n, B = 4_000_000, 1 << 19
+    data = torch.randn(n, 256, generator=gen, device="cuda")
+    ids = torch.randint(0, n, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    idx = ids.long()
+    ref = G.gather_rows_masked(data, ids)
+    tile_bytes = G.MASKED_TILE_BYTES
+
+    def j_call(lib=None, tb=tile_bytes):
+        def call():
+            G.MASKED_TILE_BYTES = tb
+            try:
+                if lib is None:
+                    return G.gather_rows_masked(data, ids)
+                with launching(G.ROW_GATHER_MASKED, lib):
+                    return G.gather_rows_masked(data, ids)
+            finally:
+                G.MASKED_TILE_BYTES = tile_bytes
+        return call
+
+    fns = {"A": lambda: G.gather_rows(data, ids), "index_select": lambda: torch.index_select(data, 0, idx)}
+    fns.update({f"J tiles of {tb // 1024} KB": j_call(tb=tb) for tb in (4096, 8192, 16384, 32768)})
+    fns.update({name: j_call(libs[name]) for name in jv})
+    for name, fn in fns.items():
+        if name.startswith("J") and not torch.equal(bits(fn()), bits(ref)):
+            raise SystemExit(f"kernel_variants: {name} differs from kernel J")
+    out["J"] = in_turns(fns)
+    out["J"]["shape"] = f"{B} uniform ids into [{n}, 256] f32, kernel tiles of {tile_bytes} bytes"
+    del data, ids, idx, ref
+    torch.cuda.empty_cache()
+
+    g = clustered_csr(1 << 20, 16, 192)
+    x = torch.randn(g.node_count, 256, generator=gen, device="cuda")
+    w = torch.rand(g.edge_count, generator=gen, device="cuda")
+    t_rp, t_col, perm = S.transpose_csr(g.row_ptr, g.col, g.node_count)
+    cases = {"mean": ((g.row_ptr, g.col, x), {"reduce": "mean"}),
+             "weighted": ((g.row_ptr, g.col, x), {"edge_weight": w}),
+             "transposed": ((t_rp, t_col, x), {"edge_weight": w[perm]})}
+    for case, (a, kw) in cases.items():
+        ref = S.csr_spmm(*a, **kw)
+
+        def g_call(lib=None, a=a, kw=kw):
+            def call():
+                if lib is None:
+                    return S.csr_spmm(*a, **kw)
+                with launching(S.CSR_SPMM, lib):
+                    return S.csr_spmm(*a, **kw)
+            return call
+
+        fns = {"G": g_call(), **{name: g_call(libs[name]) for name in gv}}
+        for name, fn in fns.items():
+            if not name.startswith("probe") and not torch.equal(bits(fn()), bits(ref)):
+                raise SystemExit(f"kernel_variants: {name} differs from kernel G ({case})")
+        out[f"G {case}"] = in_turns(fns)
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
