@@ -38,14 +38,40 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    sampler launched anything but kernel C's hop, once a hop, and profiles
    ten more steps with ``torch.profiler`` (launches per step, busy share,
    the sample stage beside the step);
-7. the host gather: a 4,000,000 x 256 f32 pinned table behind an empty
+7. ``[weighted]``: kernel K, the weighted sampler hop, at
+   ``bench_sampling(weighted=True)``'s shape (2,000,000 rows of degrees
+   16..48, 64 M edges, weights ``U[0, 1) + 0.1`` and their pair table,
+   65,536 centres, K = 15): both routes (pair table, separate arrays) held
+   against the plain version on the card by the equality rule of
+   ``ops.sampling.weighted_near_ties`` (bit for bit on every centre without
+   two keys within 4 ulps near its cut; the near-tie counts printed), the
+   routes bit-equal, one K launch a ``csr_sample_neighbors`` call by its
+   count and no other kernel by the profiler; timed by CUDA events and as
+   device time, beside the separate route, the plain version, the bound
+   and ``torch.topk`` of the ready key matrix (a reference); then degrees
+   0, K, K + 1, 256, 257 and a hub of 2^17, weights 0, -1, NaN and inf and
+   out-of-range centres at K = 1, 15 and 200;
+8. ``[weighted_train]``: the device-memory step at
+   ``SageTrainConfig(sample_method="weighted")`` (the graph of step 3 plus
+   its weights and pair table): one captured step whose two K calls are
+   checked and timed, then WEIGHTED_STEPS timed steps with the counts from
+   0, failing unless K ran twice a step and C never, with the stage split,
+   peak memory and a profiled window; a tiny weighted step, card against
+   CPU, runs in ``[parity]``;
+9. ``[sampled_agg]``: ``padded_reduce_windowed`` at
+   ``bench_spmm_sampled``'s shape (the (10, 15) sample of 1,024 sorted
+   centres over ``clustered_csr(2,000,000, 16, 192)``, x [U, 256] f32, the
+   bench's per-run windows, mean): one kernel D launch, bit-equal to
+   ``padded_reduce``, within K f32 ulps of the plain version, its gradient
+   finite; timed;
+10. the host gather: a 4,000,000 x 256 f32 pinned table behind an empty
    cache, batch 524,288, uniform ids and ids clustered in a span of
    1.25 x batch rows; kernel E bit-equal to its plain version, its rate
    against the link's, the bytes it read across the link (E's own count)
    and its sort's share, and the library routes (a CPU
    ``index_select`` into pinned staging and a copy; a span ``copy_`` and a
    take on the card);
-8. the host-tier path: ``SageTrainConfig()`` with ``cache_ratio=0.25`` and
+11. the host-tier path: ``SageTrainConfig()`` with ``cache_ratio=0.25`` and
    the top-degree rows cached; one captured step whose every E and F call is
    held against its plain version (E with the link bytes it read; F by its
    written rows and a sample of
@@ -53,7 +79,7 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    HOST_STEPS timed steps with the stage split, the
    cache hit fraction, peak device memory and pinned bytes, failing if any
    of kernels A-F was not launched (C: once a hop);
-9. ``[fg_spmm]``: kernel G at ``bench_spmm_clustered``'s shapes
+12. ``[fg_spmm]``: kernel G at ``bench_spmm_clustered``'s shapes
    (``clustered_csr(2^20, 16, 192)``, 20,441,541 edges, x [2^20, 256] f32):
    mean, sum and weighted sum held against the plain version, each also
    bit-equal to G with staging off (``_stage=False``, every tile through
@@ -64,25 +90,25 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    version and dx against an ``index_add_`` scatter; times (CUDA events and
    device time from a CUDA graph) beside the bound, the plain version and
    cuSPARSE (``torch.sparse.mm``);
-10. ``[fg_sddmm]``: kernel H at ``bench_sddmm_clustered``'s shapes, and on
+13. ``[fg_sddmm]``: kernel H at ``bench_sddmm_clustered``'s shapes, and on
     the same degrees with uniform columns (no tile's window fits), against
     its plain version (and against itself: two runs bit-identical), beside
     cuSPARSE ``sampled_addmm``, with H's own counts of the tiles it staged,
     the bytes it staged in shared memory and the edges it read from device
     memory;
-11. ``[fg_gat]``: the GAT layer at ``bench_gat_layer``'s shapes (2^18 nodes,
+14. ``[fg_gat]``: the GAT layer at ``bench_gat_layer``'s shapes (2^18 nodes,
     4 heads of 64 over width 256, self loop): one captured forward plus
     backward with the counts from 0, every G and H call held against its
     plain version, ``attn_src``'s gradient nonzero; forward and forward
     plus backward timed;
-12. ``[fg_parity]``: tiny full-graph SAGE, GCN and GAT on the card against
+15. ``[fg_parity]``: tiny full-graph SAGE, GCN and GAT on the card against
     the CPU from the same numpy data;
-13. ``[fg_model]``: ``FullGraphConfig()`` (the bench graph, a [2^20, 256]
+16. ``[fg_model]``: ``FullGraphConfig()`` (the bench graph, a [2^20, 256]
     f32 device-memory embedding as the features) with a 2-layer SAGE and a
     2-layer GCN: for each, the counts from 0, ``eval_full_graph`` on
     FG_CENTERS centres, FG_STEPS timed ``full_graph_value_and_grad`` runs,
     failing unless A and G (both routes) were launched;
-14. ``[store]``: the sharded row store (``ShardedTable``) at the JAX
+17. ``[store]``: the sharded row store (``ShardedTable``) at the JAX
     benches' shapes, a 4,000,000 x 256 table of random rows: with the counts
     from 0, ``gather(local_kernel="sorted")`` on ``bench_gather_sorted``'s
     ids (2^19 sorted unique ids at density 0.8; kernel I, f32 and bf16),
@@ -98,7 +124,7 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
     duplicated and out-of-range ids; the add against float64; a tiny table
     on the card against the CPU;
 
-then prints a ``kernels`` JSON line (A-J, G's forward and transposed
+then prints a ``kernels`` JSON line (A-K, G's forward and transposed
 routes apart, B's masked launches beside its own; ``launches`` counts
 wrapper calls, and G's and H's ``launches_per_call`` the kernels one
 bench call launched, as torch.profiler saw them, which must be G's span,
@@ -110,7 +136,8 @@ exits non-zero; without CUDA it exits non-zero before printing any result.
 ``python3 chip_smoke.py --paired-times [part ...]`` only builds the kernels
 and times them through entry points that every tree of the port with the
 row store has (:func:`paired_times`; parts ``steps``, ``store``, ``sweep``,
-``spmm``, ``sddmm``, all by default), so that the same function also times
+``spmm``, ``sddmm``, all by default; ``weighted``, uniform and weighted
+steps in turns, only when named), so that the same function also times
 another tree: run it from that tree's root as ``python3 -c "import runpy,
 sys; sys.argv = ['chip_smoke.py', '--paired-times', 'store', 'spmm'];
 runpy.run_path('<path of this file>', run_name='__main__')"``, which imports
@@ -1244,6 +1271,7 @@ def fg_sddmm_phase(g):
 PAIRED_STEPS = 30       # timed device-memory steps of a paired run
 PAIRED_HOST_STEPS = 10  # timed host-tier steps of a paired run
 PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm")
+OWN_PARTS = ("weighted",)  # this tree's entry points only, never run by default
 
 
 def paired_times(parts=PAIRED_PARTS):
@@ -1266,23 +1294,56 @@ def paired_times(parts=PAIRED_PARTS):
       stride 256, attention weights), by :func:`spmm_times`;
     * ``sddmm``: kernel H through ``csr_sddmm`` on the bench graph and on
       uniform columns, at D = 256 and at GAT's head width (views of a
-      [2^20, 4, 64] tensor), 20 calls each."""
+      [2^20, 4, 64] tensor), 20 calls each;
+    * ``weighted`` (named only; trees before weighted sampling lack it):
+      PAIRED_STEPS uniform and weighted device-memory steps in turns
+      (uniform, weighted, weighted, uniform) on the same graph, table and
+      model, so that the two samplers are compared in one call; beside each,
+      the host's time to enqueue one ``multilayer_sample`` (20 calls, no
+      synchronisation inside) and its time by CUDA events."""
     secs = kernels.build_all()
     dev = torch.device("cuda")
     out = {"build_s": max(secs.values()), "device": torch.cuda.get_device_name(0),
            "parts": list(parts)}
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
+    cfg = wt.SageTrainConfig()
+
+    def batcher(state):
+        def batch():
+            c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device=dev,
+                              dtype=torch.int32)
+            return c, state.labels[c.long()]
+        return batch
+
+    if "weighted" in parts:
+        states = {m: wt.build_synthetic(dataclasses.replace(cfg, sample_method=m), device=dev,
+                                        seed=0) for m in ("unweighted", "weighted")}
+        out["weighted_turns"] = []
+        for m in ("unweighted", "weighted", "weighted", "unweighted"):
+            summary, launches, _ = timed_steps(f"paired {m}", states[m], batcher(states[m]),
+                                               PAIRED_STEPS, 5)
+            require(launches["sample_hop_weighted" if m == "weighted" else "sample_hop_uniform"]
+                    == 2 * PAIRED_STEPS, f"[paired] {m} steps: launches {launches}")
+            st = states[m]
+            c = batcher(st)()[0]
+
+            def sample():
+                return st.graph.multilayer_sample(c, cfg.fanouts, seed=0,
+                                                  weighted=m == "weighted")
+
+            sample()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                sample()
+            host_ms = (time.perf_counter() - t0) * 1e3 / 20  # enqueue only: no sync inside
+            out["weighted_turns"].append({"method": m, **{k: summary[k] for k in (
+                "step_median_ms", "step_p90_ms", "sample_median_ms", "busy_ms")},
+                "sample_host_enqueue_ms": host_ms, "sample_cuda_ms": cuda_ms(sample)})
+        del states
+        torch.cuda.empty_cache()
     if "steps" in parts:
-        cfg = wt.SageTrainConfig()
-
-        def batcher(state):
-            def batch():
-                c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device=dev,
-                                  dtype=torch.int32)
-                return c, state.labels[c.long()]
-            return batch
-
         state = wt.build_synthetic(cfg, device=dev, seed=0)
         out["hbm"], _, c = timed_steps("paired hbm", state, batcher(state), PAIRED_STEPS, 5)
         g = state.graph
@@ -1939,6 +2000,327 @@ def store_phase():
     return errs, times, sweep, launches, routes
 
 
+# ---------------------------------------------------------------------------
+# the weighted sampler (kernel K) and the windowed sampled aggregation (D)
+# ---------------------------------------------------------------------------
+
+WEIGHTED_ROWS = 2_000_000    # bench_sampling's rows (degrees 16..48, mean 32)
+WEIGHTED_BATCH = 1 << 16     # its batch
+WEIGHTED_K = 15              # its fanout
+WEIGHTED_STEPS = 30          # timed full-width weighted steps (p90 has 3 beyond it)
+KW = sampling_mod.SAMPLE_HOP_WEIGHTED
+
+
+def weighted_route(route, row_ptr, col, w, pairs, centers, K, seed, hop, max_degree):
+    """One ``csr_sample_neighbors`` call on the pair table or on the
+    separate arrays; fails unless it launched kernel K once."""
+    k0 = KW.launches
+    res = wt.ops.csr_sample_neighbors(row_ptr, col, centers, K, seed=seed, hop=hop, weights=w,
+                                      max_degree=max_degree,
+                                      cw_blocks=pairs if route == "pairs" else None)
+    require(KW.launches == k0 + 1, f"csr_sample_neighbors ({route}) did not launch K once")
+    return res
+
+
+def check_weighted(case, row_ptr, col, w, pairs, centers, K, seed, hop, max_degree):
+    """Kernel K on both routes against its plain version on the card by the
+    equality rule (``ops.sampling.weighted_near_ties``: bit for bit on every
+    centre without two keys within 4 ulps near its cut), the two routes
+    bit-equal; the near-tie counts printed."""
+    ref = sampling_mod.csr_sample_neighbors_weighted_plain(row_ptr, col, w, centers, K, seed, hop)
+    near, inside = sampling_mod.weighted_near_ties(row_ptr, col, w, centers, K, seed, hop)
+    ref_f = {f: getattr(ref, f) for f in SAMPLE_FIELDS}
+    out = {"case": case, "max_abs_err": 0.0, "tol": 0.0, "fields": list(SAMPLE_FIELDS),
+           "centres": centers.numel(), "valid_slots": int(ref.mask.sum())}
+    got = {}
+    for route in ("pairs", "separate"):
+        got[route] = weighted_route(route, row_ptr, col, w, pairs, centers, K, seed, hop,
+                                    max_degree)
+        n_near, n_differ, n_bad = sampling_mod.weighted_rule(
+            {f: getattr(got[route], f) for f in SAMPLE_FIELDS}, ref_f, near, inside)
+        require(n_bad == 0, f"K ({case}, {route}): {n_bad} centres break the equality rule")
+        out.update({f"near_ties_{route}": n_near, f"near_ties_differing_{route}": n_differ})
+    require(same_sample(got["pairs"], got["separate"]), f"K ({case}): the two routes differ")
+    log(f"[weighted] {case}: K equal to its plain version on both routes by the rule; near-tie "
+        f"centres {out['near_ties_pairs']}, of them differing {out['near_ties_differing_pairs']} "
+        f"(pairs) / {out['near_ties_differing_separate']} (separate); routes bit-equal")
+    return out, ref
+
+
+def weighted_cases(gen):
+    """Graphs and centres beyond the bench's: rows of degree 0, K, K + 1,
+    256 and 257 (either side of K's stage) and a hub of 2^17 edges; weights
+    with zeros, negatives, NaNs and infinities among them; every centre id
+    outside [0, n) of either sign."""
+    out = []
+    for K in (1, 15, 200):
+        n = 20_000
+        degs = torch.randint(0, 2 * K + 4, (n,), generator=gen, device="cuda")
+        degs[:7] = torch.tensor([0, 0, K, K + 1, 256, 257, 1 << 17], device="cuda")
+        row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                             torch.cumsum(degs, 0)]).to(torch.int32)
+        E = int(row_ptr[-1])
+        col = torch.randint(0, n, (E,), generator=gen, device="cuda", dtype=torch.int32)
+        w = torch.rand(E, generator=gen, device="cuda") + 0.01
+        pick = torch.rand(E, generator=gen, device="cuda")
+        w[pick < 0.05] = 0.0
+        w[(pick >= 0.05) & (pick < 0.07)] = -1.0
+        w[(pick >= 0.07) & (pick < 0.08)] = float("nan")
+        w[(pick >= 0.08) & (pick < 0.09)] = float("inf")
+        centers = torch.cat([torch.arange(n, device="cuda"),
+                             torch.tensor([6, 6, 3, 4, 0, -1, -7, n, n + 9, -(2**31), 2**31 - 1],
+                                          device="cuda")]).to(torch.int32)
+        out.append((f"K={K} degrees 0, K, K+1, 256, 257, hub 2^17, weights 0/-1/NaN/inf, "
+                    f"out-of-range centres", (row_ptr, col, w, centers, K)))
+    return out
+
+
+def weighted_hop_times(case, row_ptr, col, w, pairs, centers, K, seed, hop, iters=20):
+    """One K call's times: the pair table's and the separate arrays' by CUDA
+    events, its device time (a CUDA graph), the plain version, and for
+    reference ``torch.topk`` of the padded [B, max degree] key matrix
+    (built beforehand: no single PyTorch call samples); the bound counts
+    the centres, their row_ptr pairs, 8 bytes an edge of theirs and the
+    outputs."""
+    B = centers.numel()
+    start, deg = sampling_mod._centre_rows(row_ptr, centers)
+    edges = int(deg.clamp(min=0).long().sum())
+    keys = sampling_mod._weighted_keys(start, deg, w, seed, centers, hop,
+                                       max(int(deg.max()), 1) if B else 1)
+
+    def call():
+        return sampling_mod.sample_hop_weighted(row_ptr, None, None, centers, K, seed, hop,
+                                                pairs=pairs)
+
+    nbytes = B * (4 + 8) + 8 * edges + B * K * 13 + 4 * B
+    b_ms, by = bound_ms(nbytes)
+    t = {"case": case, "ms": cuda_ms(call, iters), "device_ms": graph_ms(call),
+         "separate_ms": cuda_ms(lambda: sampling_mod.sample_hop_weighted(
+             row_ptr, col, w, centers, K, seed, hop), iters),
+         "plain_ms": cuda_ms(lambda: sampling_mod.csr_sample_neighbors_weighted_plain(
+             row_ptr, None, None, centers, K, seed, hop, pairs=pairs), 3, warmup=1),
+         "library_ms": None, "topk_ms": cuda_ms(lambda: torch.topk(keys, min(K, keys.shape[1]),
+                                                                   dim=1), iters),
+         "bound_ms": b_ms, "bound_by": by, "bytes": nbytes, "edges": edges}
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    log(f"[weighted] {case}: K {t['ms']} ms by CUDA events (pair table; separate arrays "
+        f"{t['separate_ms']}), device {t['device_ms']} ms from a CUDA graph, plain {t['plain_ms']} "
+        f"ms, topk of the ready key matrix {t['topk_ms']} ms (reference), bound {b_ms} ms "
+        f"({nbytes} bytes)")
+    return t
+
+
+def weighted_phase():
+    """``[weighted]``: kernel K at ``bench_sampling(weighted=True)``'s shape
+    (``bench.py:311-375``): 2,000,000 rows of degrees
+    ``RandomState(1).randint(16, 49)``, uniform columns, weights ``U[0, 1) +
+    0.1``, its pair table, 65,536 centres, K = 15, seed 0, declared
+    max_degree 65,536. Both routes held against the plain version by the
+    equality rule, one K launch a call by its count and no other kernel by
+    the profiler, timed; then the edge cases at K = 1, 15 and 200."""
+    t0 = time.perf_counter()
+    degs = np.random.RandomState(1).randint(16, 49, WEIGHTED_ROWS)
+    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)).cuda()
+    E = int(row_ptr[-1])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    col = torch.randint(0, WEIGHTED_ROWS, (E,), generator=gen, device="cuda", dtype=torch.int32)
+    w = torch.rand(E, generator=gen, device="cuda") + 0.1
+    pairs = wt.ops.interleave_col_weights(col, w)
+    centers = torch.randint(0, WEIGHTED_ROWS, (WEIGHTED_BATCH,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    torch.cuda.synchronize()
+    log(f"[weighted] bench graph: {WEIGHTED_ROWS} rows, {E} edges, pair table "
+        f"{pairs.nbytes} bytes, built in {time.perf_counter() - t0:.2f} s")
+    args = (row_ptr, col, w, pairs, centers, WEIGHTED_K, 0, 0)
+    errs = [check_weighted(f"bench [{WEIGHTED_BATCH}, {WEIGHTED_K}]", *args, 65536)[0]]
+
+    def call():
+        return weighted_route("pairs", *args, 65536)
+
+    for _ in range(3):  # a window in which the profiler recorded something
+        n_kern, names = profiled(call, 5)
+        if names:
+            break
+    require(names and n_kern <= 1 and all("hop_weighted" in k for k in names),
+            f"csr_sample_neighbors (weighted) launched other kernels: {n_kern} a call, {names}")
+    errs[0]["kernels_per_call"] = n_kern
+    bench = weighted_hop_times(f"bench [{WEIGHTED_BATCH}, {WEIGHTED_K}]", *args)
+    del row_ptr, col, w, pairs, args
+    torch.cuda.empty_cache()
+    for case, (rp, cl, wc, ce, K) in weighted_cases(gen):
+        errs.append(check_weighted(case, rp, cl, wc, wt.ops.interleave_col_weights(cl, wc), ce, K,
+                                   17, 1, 1 << 17)[0])
+    return errs, bench
+
+
+def weighted_train_phase(cfg, batch_of):
+    """``[weighted_train]``: the device-memory step at
+    ``SageTrainConfig(sample_method="weighted")``, full width (the graph,
+    table and model of ``[train]`` plus 128 MB of weights and the 256 MB
+    pair table). One captured step whose two K calls are held against the
+    plain version and timed; then WEIGHTED_STEPS timed steps with the counts
+    from 0: two K launches a step and no C launch, A, B and D launched, the
+    loss finite."""
+    wcfg = dataclasses.replace(cfg, sample_method="weighted")
+    t0 = time.perf_counter()
+    state = wt.build_synthetic(wcfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"[weighted_train] {wcfg} built in {time.perf_counter() - t0:.2f} s: "
+        f"{state.graph.edge_count} edges, weights {state.graph.edge_weight.nbytes} bytes, "
+        f"pair table {state.graph.cw_blocks.nbytes} bytes")
+    batch = batch_of(state)
+    calls = []
+    with capture_kw(sampling_mod, "sample_hop_weighted", calls):
+        loss0 = float(wt.train_step(state, *batch(), seed=0))
+    require(np.isfinite(loss0) and len(calls) == 2,
+            f"a weighted step: loss {loss0}, {len(calls)} K calls (2 expected)")
+    g = state.graph
+    errs, times = [], []
+    for i, (a, kw) in enumerate(calls):
+        _, _, _, centers, K, seed, hop = a
+        case = f"hop{i} [{centers.numel()}, {K}]"
+        errs.append(check_weighted(case, g.row_ptr, g.col, g.edge_weight, g.cw_blocks, centers,
+                                   K, seed, hop, g.max_degree)[0])
+        times.append(weighted_hop_times(case, g.row_ptr, g.col, g.edge_weight, g.cw_blocks,
+                                        centers, K, seed, hop))
+    del calls
+    summary, launches, c = timed_steps("weighted_train", state, batch, WEIGHTED_STEPS)
+    require(launches[KW.name] == 2 * WEIGHTED_STEPS and launches["sample_hop_uniform"] == 0
+            and launches["sample_cols"] == 0,
+            f"the weighted sampler did not run one K launch a hop and nothing else: {launches}")
+    require(all(launches[k] > 0 for k in ("row_gather", "row_scatter", "neighbor_agg")),
+            f"a kernel of the weighted step never ran: {launches}")
+    require(bool(torch.isfinite(state.embedding.table[c.long()]).all()), "non-finite table rows")
+    del state, g
+    torch.cuda.empty_cache()
+    return errs, times, launches, summary
+
+
+def weighted_parity():
+    """``[parity]``: a tiny weighted step three times from the same numpy
+    graph, weights, table and model on the card and on the CPU: the samples
+    bit-equal (no centre of these batches has a near tie), the losses within
+    tolerance."""
+    cfg = wt.SageTrainConfig(n_nodes=400, deg=16, dim=128, hidden=128, num_classes=16,
+                             batch=32, fanouts=(10, 15), sample_method="weighted")
+    rs = np.random.RandomState(9)
+    degs = rs.randint(cfg.deg // 2, cfg.deg + cfg.deg // 2 + 1, cfg.n_nodes)
+    degs[:4] = 0
+    row_ptr = np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)
+    col = rs.randint(0, cfg.n_nodes, row_ptr[-1]).astype(np.int32)
+    wts = (rs.rand(row_ptr[-1]) + 0.1).astype(np.float32)
+    table = (rs.randn(cfg.n_nodes, cfg.dim) / np.sqrt(cfg.dim)).astype(np.float32)
+    labels = rs.randint(0, cfg.num_classes, cfg.n_nodes).astype(np.int32)
+    ref_model = HomoGNN(cfg.dim, cfg.hidden, cfg.num_classes, device="cpu")
+    weights = {k: torch.from_numpy(rs.randn(*v.shape).astype(np.float32) / np.sqrt(v.shape[-1]))
+               for k, v in ref_model.state_dict().items()}
+    batches = [rs.randint(0, cfg.n_nodes, cfg.batch).astype(np.int32) for _ in range(3)]
+
+    def state(dev):
+        model = HomoGNN(cfg.dim, cfg.hidden, cfg.num_classes, device=dev)
+        model.load_state_dict(weights)
+        graph = GraphStructure(torch.from_numpy(row_ptr).to(dev), torch.from_numpy(col).to(dev),
+                               cfg.n_nodes, edge_weight=torch.from_numpy(wts).to(dev))
+        return wt.SageTrainState(
+            cfg, graph.with_weighted_fastpath(),
+            Embedding.create(cfg.n_nodes, cfg.dim, optimizer=LazyAdam(), device=dev
+                             ).from_array(table),
+            model, torch.optim.Adam(model.parameters(), lr=cfg.lr),
+            torch.from_numpy(labels).to(dev))
+
+    gpu, cpu = state("cuda"), state("cpu")
+    tol = 1e-5  # f32 sums in other orders on the two devices, over three Adam steps
+    losses = {"gpu": [], "cpu": []}
+    for i, centers in enumerate(batches):
+        c = torch.from_numpy(centers)
+        mc = cpu.graph.multilayer_sample(c, cfg.fanouts, seed=i, weighted=True)
+        for l, K in enumerate(cfg.fanouts):
+            hop_centres = torch.where(mc.level_masks[l], mc.level_gids[l], 0)
+            near, _ = sampling_mod.weighted_near_ties(cpu.graph.row_ptr, cpu.graph.col,
+                                                      cpu.graph.edge_weight, hop_centres, K, i, l)
+            require(not near.any(), f"a near tie in the weighted parity batch {i}, hop {l}")
+        mg = gpu.graph.multilayer_sample(c.cuda(), cfg.fanouts, seed=i, weighted=True)
+        require(torch.equal(mg.unique_gids.cpu(), mc.unique_gids)
+                and all(torch.equal(a.nbr_idx.cpu(), b.nbr_idx) and torch.equal(a.mask.cpu(), b.mask)
+                        for a, b in zip(mg.hops, mc.hops)),
+                f"weighted samples differ between GPU and CPU (batch {i})")
+        for name, st in (("gpu", gpu), ("cpu", cpu)):
+            cd = c.to(st.labels.device)
+            losses[name].append(float(wt.train_step(st, cd, st.labels[cd.long()], seed=i)))
+    for la, lb in zip(losses["gpu"], losses["cpu"]):
+        require(abs(la - lb) <= tol * max(1.0, abs(lb)), f"weighted loss {la} (gpu) vs {lb} (cpu)")
+    log(f"[parity] 3 tiny weighted steps, samples bit-equal, losses {json.dumps(losses)} "
+        f"(tol {tol})")
+
+
+def sampled_agg_phase():
+    """``[sampled_agg]``: ``padded_reduce_windowed`` at
+    ``bench_spmm_sampled``'s shape (``bench.py:477-545``): the deepest hop
+    of a (10, 15) sample of 1,024 sorted centres over
+    ``clustered_csr(2,000,000, 16, 192)``, the centres drawn as the bench
+    draws them, x [U, 256] f32 random, the bench's per-run windows, mean.
+    One D launch, bit-equal to ``padded_reduce`` (the same kernel) and
+    within K f32 ulps of the plain version; its gradient runs; timed beside
+    ``padded_reduce``."""
+    t0 = time.perf_counter()
+    n = 2_000_000
+    g = wt.clustered_csr(n, 16, 192, seed=0)
+    rs = np.random.RandomState(0)  # the bench's draws after its graph's
+    E = int(rs.randint(8, 32, n).sum())
+    rs.randint(-96, 97, E)
+    require(E == g.edge_count, f"the bench graph has {g.edge_count} edges, the draws {E}")
+    centers = torch.from_numpy(np.sort(rs.choice(n, 1024, replace=False)).astype(np.int32)).cuda()
+    ml = g.multilayer_sample(centers, (10, 15), seed=1)
+    L = 1
+    hop = ml.hops[L]
+    rb = ml.run_bounds(L)
+    wins = tuple(min(-(-min(b2 - b1, 1024) // 128) * 128, 1024) for b1, b2 in zip(rb, rb[1:]))
+    U = rb[-1]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    x = torch.randn(U, 256, generator=gen, device="cuda")
+    nbr, msk = hop.nbr_idx, hop.mask
+    log(f"[sampled_agg] {g.edge_count} edges; block [{nbr.shape[0]}, {nbr.shape[1]}] over "
+        f"[{U}, 256], run bounds {rb}, windows {wins}, {int(msk.sum())} edges; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def windowed():
+        return wt.ops.padded_reduce_windowed(x, nbr, msk, "mean", run_bounds=rb, windows=wins)
+
+    d0 = S.NEIGHBOR_AGG.launches
+    out = windowed()
+    require(S.NEIGHBOR_AGG.launches == d0 + 1, "padded_reduce_windowed did not launch D once")
+    require(bit_equal(out, wt.ops.padded_reduce(x, nbr, msk, "mean")),
+            "padded_reduce_windowed differs from padded_reduce")
+    ref = S.neighbor_reduce_plain(x, nbr, msk, True)
+    K = nbr.shape[1]
+    tol = K * F32_EPS * max(1.0, ref.abs().max().item())
+    err = max_err(out, ref)
+    require(err <= tol, f"padded_reduce_windowed err {err} > tol {tol}")
+    xg = x.clone().requires_grad_()
+    wt.ops.padded_reduce_windowed(xg, nbr, msk, "mean", run_bounds=rb, windows=wins).sum().backward()
+    require(bool(torch.isfinite(xg.grad).all()), "non-finite gradient of padded_reduce_windowed")
+    rb_ = 256 * 4
+    uniq = torch.unique(nbr[msk]).numel()
+    def padded():
+        return wt.ops.padded_reduce(x, nbr, msk, "mean")
+
+    t = {"case": f"hop1 [{nbr.shape[0]}, {K}] over [{U}, 256] mean", "max_abs_err": err,
+         "tol": tol, "ms": cuda_ms(windowed), "device_ms": graph_ms(windowed),
+         "padded_reduce_ms": cuda_ms(padded), "padded_reduce_device_ms": graph_ms(padded),
+         "plain_ms": cuda_ms(lambda: S.neighbor_reduce_plain(x, nbr, msk, True), 5),
+         "bound_ms": bound_ms(5 * nbr.numel() + uniq * rb_ + nbr.shape[0] * rb_,
+                              int(msk.sum()) * 256)[0]}
+    log(f"[sampled_agg] padded_reduce_windowed (D): one launch, bit-equal to padded_reduce, err "
+        f"{err} (tol {tol}) against the plain version; {t['ms']} ms by CUDA events, device "
+        f"{t['device_ms']} ms (padded_reduce {t['padded_reduce_ms']}, device "
+        f"{t['padded_reduce_device_ms']}), plain {t['plain_ms']}, bound {t['bound_ms']}")
+    del g, ml, x, xg
+    torch.cuda.empty_cache()
+    return t
+
+
 def bench_entry(kern, name, launches, errs, main_call, calls, **extra):
     """One kernel's line from the times of its bench-shape call."""
     return {
@@ -1995,10 +2377,14 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
 
-    def batch():
-        c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device=dev,
-                          dtype=torch.int32)
-        return c, state.labels[c.long()]
+    def batch_of(st):
+        def batch():
+            c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device=dev,
+                              dtype=torch.int32)
+            return c, st.labels[c.long()]
+        return batch
+
+    batch = batch_of(state)
 
     # one full-width step that records every kernel wrapper's arguments
     calls = {k: [] for k in ("A", "B", "C", "D")}
@@ -2025,6 +2411,7 @@ def main():
     del calls
 
     small_parity()
+    weighted_parity()
 
     # the device-memory path: reset the counters, train, read them
     _, launches, c = timed_steps("train", state, batch, STEPS)
@@ -2033,8 +2420,13 @@ def main():
     require(launches["sample_hop_uniform"] == 2 * STEPS and launches["sample_cols"] == 0,
             f"the sampler did not run one kernel C launch per hop: {launches}")
     require(bool(torch.isfinite(state.embedding.table[c.long()]).all()), "non-finite table rows")
-    del state
+    del state, batch
     torch.cuda.empty_cache()
+
+    # the weighted sampler (kernel K) and the windowed sampled aggregation (D)
+    w_errs, w_bench = weighted_phase()
+    wt_errs, wt_times, wt_launches, wt_summary = weighted_train_phase(cfg, batch_of)
+    sagg = sampled_agg_phase()
 
     bench, bench_errs = host_gather_phase(link)
     host_errs, host_times, host_launches = host_tier_phase(cfg, link)
@@ -2078,6 +2470,9 @@ def main():
                           "launches": launches[G.SAMPLE_COLS.name],
                           **{k: sum(t["fetch_route"][k] for t in c["calls"])
                              for k in ("ms", "plain_ms", "bound_ms")}})
+    d = next(e for e in out if e["name"] == S.NEIGHBOR_AGG.name)  # D gains the windowed call
+    d.update(sampled_agg=sagg)
+    d["checks"] = d["checks"] + [{k: sagg[k] for k in ("case", "max_abs_err", "tol")}]
     out.append(kernel_entry(H.HOST_GATHER, host_launches, host_errs["E"] + bench_errs,
                             host_times["E"], steps=HOST_STEPS, bench=bench, link=link))
     out.append(kernel_entry(H.HOST_SCATTER, host_launches, host_errs["F"], host_times["F"],
@@ -2104,6 +2499,15 @@ def main():
     out.append(bench_entry(G.ROW_GATHER_MASKED, "row_gather_masked",
                            st_launches["row_gather_masked"], st_errs["J"], st_times["J"][0],
                            st_times["J"], launches_path="store (ring gather)"))
+    out.append(bench_entry(
+        KW, KW.name, wt_launches[KW.name], w_errs + wt_errs, w_bench, [w_bench] + wt_times,
+        launches_path=f"weighted_train ({WEIGHTED_STEPS} steps)", launches_per_hop=1,
+        launches_per_step=wt_launches[KW.name] / WEIGHTED_STEPS,
+        step_ms={k: sum(t[k] for t in wt_times) for k in ("ms", "device_ms", "plain_ms",
+                                                           "bound_ms")},
+        library="none: no single PyTorch call samples; topk_ms is torch.topk of the ready "
+                "padded key matrix, for reference only",
+        weighted_train=wt_summary))
     log(json.dumps({"kernels": out}))
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2113,8 +2517,8 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--paired-times"]:
-        require(set(sys.argv[2:]) <= set(PAIRED_PARTS),
-                f"--paired-times takes parts among {PAIRED_PARTS}, got {sys.argv[2:]}")
+        require(set(sys.argv[2:]) <= set(PAIRED_PARTS + OWN_PARTS),
+                f"--paired-times takes parts among {PAIRED_PARTS + OWN_PARTS}, got {sys.argv[2:]}")
         paired_times(tuple(sys.argv[2:]) or PAIRED_PARTS)
     else:
         main()

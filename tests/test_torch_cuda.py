@@ -1,8 +1,9 @@
-"""Kernels A-J on the card against their plain PyTorch versions, one tiny
+"""Kernels A-K on the card against their plain PyTorch versions, one tiny
 training step on the card against the same step on the CPU, the same for
 the host-memory tier (kernels E and F on pinned host tables), tiny
-full-graph models (kernels G and H), and the sharded row store (kernels I
-and J, and B's masked route) on the card against the CPU.
+full-graph models (kernels G and H), the sharded row store (kernels I
+and J, and B's masked route), and the weighted sampler (kernel K, alone, in
+a multilayer sample and in training steps) on the card against the CPU.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so without a card every test
 here skips. On a machine with an H100 run them with
@@ -12,7 +13,10 @@ Tolerances: A, B, C, E, F, I and J move bits and must be exact, NaN
 payloads and -0 included. D and G sum up to
 K f32 values in another order than their plain versions: K f32 ulps of the
 largest output (K the longest row), plus one bf16 ulp when the output is
-rounded to bf16. H's dot of D products: D f32 ulps of the largest value."""
+rounded to bf16. H's dot of D products: D f32 ulps of the largest value.
+K: bit-equal on every centre without a near tie (``ops.sampling.
+weighted_near_ties``: two keys within 4 ulps near its cut, where ``logf``
+on the card and the plain version's ``log`` may order them apart)."""
 
 import numpy as np
 import pytest
@@ -982,3 +986,127 @@ def test_store_on_card_matches_cpu(dev):
             assert torch.equal(a, b)
         else:  # sums of duplicates in another order
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _weighted_graph(K, seed):
+    """Rows of degree 0, 1, K, K + 1, 256 and 257 (the stage's edge, on
+    either side) and a hub of 2^17 edges, then random rows; weights
+    positive with 0, negative, NaN and +inf mixed in; out-of-range centres."""
+    rs = np.random.RandomState(seed)
+    n = 3000
+    degs = rs.randint(0, 2 * K + 40, n)
+    degs[:7] = [0, 1, K, K + 1, 256, 257, 1 << 17]
+    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(degs)]).astype(np.int32))
+    E = int(row_ptr[-1])
+    col = torch.from_numpy(rs.randint(0, n, E).astype(np.int32))
+    w = (rs.rand(E) + 0.01).astype(np.float32)
+    pick = rs.rand(E)
+    w[pick < 0.05] = 0.0
+    w[(pick >= 0.05) & (pick < 0.07)] = -1.0
+    w[(pick >= 0.07) & (pick < 0.08)] = np.nan
+    w[(pick >= 0.08) & (pick < 0.09)] = np.inf
+    centers = torch.from_numpy(np.concatenate([
+        np.arange(n), [6, 6, 4, 5], [-1, -7, n, n + 9, -(2**31), 2**31 - 1],
+        rs.randint(0, n, 2000)]).astype(np.int32))
+    return row_ptr, col, torch.from_numpy(w), centers
+
+
+def _weighted_check(got, row_ptr, col, w, centers, K, seed, hop, pairs=None):
+    """K's sample against its plain version on the card by the equality
+    rule (``ops.sampling.weighted_near_ties``); the counts printed."""
+    ref = SM.csr_sample_neighbors_weighted_plain(row_ptr, col, w, centers, K, seed, hop,
+                                                 pairs=pairs)
+    near, inside = SM.weighted_near_ties(row_ptr, col, w, centers, K, seed, hop, pairs=pairs)
+    fields = {f: getattr(got, f) for f in SAMPLE_FIELDS}
+    n_near, n_differ, n_bad = SM.weighted_rule(fields, {f: getattr(ref, f) for f in SAMPLE_FIELDS},
+                                               near, inside)
+    print(f"K={K}: near-tie centres {n_near}, of them differing {n_differ}")
+    assert n_bad == 0
+    return n_near, n_differ
+
+
+@pytest.mark.parametrize("K", [0, 1, 15, 200])
+@pytest.mark.parametrize("route", ["pairs", "separate"])
+def test_sample_hop_weighted_matches_plain(dev, K, route):
+    """Kernel K, all five fields, against its plain version on the card by
+    the equality rule: both selection modes (the stage to 256 edges, the
+    running list above), degrees 0, 1, K, K + 1 and a hub, -inf keys inside
+    rows, out-of-range centres; one launch a call, deterministic, and the
+    two routes bit-equal."""
+    row_ptr, col, w, centers = (t.to(dev) for t in _weighted_graph(K, K + 3))
+    pairs = SM.interleave_col_weights(col, w)
+    kw = dict(cw_blocks=pairs) if route == "pairs" else {}
+    before = (SM.SAMPLE_HOP_WEIGHTED.launches, SM.SAMPLE_HOP.launches)
+    got = SM.csr_sample_neighbors(row_ptr, col, centers, K, seed=7, hop=2, weights=w,
+                                  max_degree=1 << 17, **kw)
+    assert (SM.SAMPLE_HOP_WEIGHTED.launches, SM.SAMPLE_HOP.launches) == (before[0] + 1, before[1])
+    _weighted_check(got, row_ptr, col, w, centers, K, 7, 2)
+    other = SM.sample_hop_weighted(row_ptr, col, w, centers, K, 7, 2,
+                                   pairs=None if route == "pairs" else pairs)
+    _assert_same_sample(got, other, f"K={K}, the other route")
+    _assert_same_sample(got, SM.csr_sample_neighbors(row_ptr, col, centers, K, seed=7, hop=2,
+                                                     weights=w, max_degree=1 << 17, **kw),
+                        f"K={K}, a second run")
+    if K:
+        m = got.mask.cpu()
+        assert (m[:, 1:] <= m[:, :-1]).all()  # holes only at a row's end
+        assert got.degree[6] == 1 << 17 and m[6].sum() == K
+
+
+def test_sample_hop_weighted_list_in_device_memory(dev):
+    """K = 700: eight warps' lists exceed the shared memory beside the
+    stages, so each hub's list lives in its own rows of pos and edge_ids
+    until the last pass rewrites them."""
+    K = 700
+    row_ptr = torch.tensor([0, 40_000, 40_300, 41_000, 43_000], dtype=torch.int32)
+    rs = np.random.RandomState(2)
+    w = torch.from_numpy((rs.rand(43_000) + 0.1).astype(np.float32))
+    col = torch.arange(43_000, dtype=torch.int32).flip(0).contiguous()
+    centers = torch.tensor([0, 1, 2, 3, 0, 9], dtype=torch.int32)
+    args = (t.to(dev) for t in (row_ptr, col, w, centers))
+    row_ptr_d, col_d, w_d, centers_d = args
+    got = SM.csr_sample_neighbors(row_ptr_d, col_d, centers_d, K, seed=3, hop=1, weights=w_d,
+                                  max_degree=40_000)
+    _weighted_check(got, row_ptr_d, col_d, w_d, centers_d, K, 3, 1)
+    assert got.mask.cpu()[[0, 2, 3, 4]].all() and got.mask.cpu()[1].sum() == 300
+
+
+def test_weighted_multilayer_and_step_on_card_match_cpu(dev):
+    """A weighted multilayer sample through the pair table, and three
+    weighted training steps, on the card against the CPU from the same
+    numpy data (no near tie on these seeds, so the samples are bit-equal)."""
+    rs = np.random.RandomState(11)
+    n = 2000
+    src, dst = rs.randint(0, n, n * 12), rs.randint(0, n, n * 12)
+    w = (rs.rand(n * 12) + 0.1).astype(np.float32)
+    centers = torch.from_numpy(rs.choice(n, 256, replace=False).astype(np.int32))
+    a = GraphStructure.from_coo(src, dst, n, edge_weight=w, device=dev).with_weighted_fastpath()
+    b = GraphStructure.from_coo(src, dst, n, edge_weight=w, device="cpu")
+    before = SM.SAMPLE_HOP_WEIGHTED.launches
+    ma = a.multilayer_sample(centers.to(dev), (10, 15), seed=3, weighted=True)
+    mb = b.multilayer_sample(centers, (10, 15), seed=3, weighted=True)
+    assert SM.SAMPLE_HOP_WEIGHTED.launches == before + 2
+    for l, K in enumerate((10, 15)):  # the premise of bit-equality: no near tie
+        hop_centres = torch.where(mb.level_masks[l], mb.level_gids[l], 0)
+        assert not SM.weighted_near_ties(b.row_ptr, b.col, b.edge_weight, hop_centres, K, 3,
+                                         l)[0].any()
+    assert torch.equal(ma.unique_gids.cpu(), mb.unique_gids)
+    for x, y in zip(ma.hops, mb.hops):
+        assert torch.equal(x.nbr_idx.cpu(), y.nbr_idx) and torch.equal(x.mask.cpu(), y.mask)
+    cfg = wt.SageTrainConfig(n_nodes=400, deg=16, dim=64, hidden=64, num_classes=8, batch=32,
+                             sample_method="weighted")
+    states = [wt.build_synthetic(cfg, device=d, seed=1) for d in ("cpu", dev)]
+    states[1].embedding.from_array(states[0].embedding.to_array())
+    states[1].model.load_state_dict(states[0].model.state_dict())
+    for s in states[1:]:
+        s.graph = GraphStructure(*(t.to(dev) for t in (states[0].graph.row_ptr,
+                                                        states[0].graph.col)), 400,
+                                 max_degree=states[0].graph.max_degree,
+                                 edge_weight=states[0].graph.edge_weight.to(dev)
+                                 ).with_weighted_fastpath()
+        s.labels = states[0].labels.to(dev)
+    for i in range(3):
+        c = torch.from_numpy(rs.randint(0, 400, 32).astype(np.int32))
+        la, lb = (float(wt.train_step(s, c.to(s.labels.device), s.labels[c.long().to(
+            s.labels.device)], seed=i)) for s in states)
+        assert abs(la - lb) <= 1e-5 * max(1.0, abs(la)), (la, lb)

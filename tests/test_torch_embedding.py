@@ -127,3 +127,68 @@ def test_bf16_table_apply():
     ref[[3, 4]] = (ref[[3, 4]] - 0.5).to(torch.bfloat16).float()
     assert te.table.dtype == torch.bfloat16
     np.testing.assert_array_equal(te.table.float().numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("layout", ["prefix", "valid_after_padding", "no_valid"])
+@pytest.mark.parametrize("unique", [False, True])
+def test_unique_chunk_bit_equal_to_without(layout, unique, monkeypatch):
+    """``apply_gradients(unique_chunk=)`` (``embedding.py:106-135``): chunks
+    of 1024 ids, stopping after the last chunk that holds a valid id; the
+    table and every slot come out bit-equal to the call without it, for ids
+    valid as a prefix (a sampler's buffer), valid ids after padding, and no
+    valid id at all. The JAX package's table agrees within ROWS."""
+    n, R = 6000, 3000
+    rs = np.random.RandomState(7)
+    init = rs.randn(n, DIM).astype(np.float32)
+    ids = rs.permutation(n)[:R].astype(np.int32) if unique else rs.randint(0, n, R).astype(np.int32)
+    mask = np.zeros(R, bool)
+    if layout == "prefix":
+        mask[:1700] = True
+    elif layout == "valid_after_padding":
+        mask[rs.rand(R) < 0.3] = True
+        mask[2900:2950] = True  # valid ids in the last chunk, after padding
+    ids[~mask] = n  # padding: the out-of-range sentinel
+    grads = rs.randn(R, DIM).astype(np.float32)
+    steps = []
+    step_rows = temb.Embedding._step_rows
+    monkeypatch.setattr(temb.Embedding, "_step_rows",
+                        lambda self, u, g, lr: steps.append(len(u)) or step_rows(self, u, g, lr))
+    runs = []
+    for chunk in (None, 1024):
+        te = temb.Embedding.create(n, DIM, optimizer=temb.LazyAdam(), device="cpu").from_array(init)
+        for _ in range(2):
+            te.apply_gradients(torch.from_numpy(ids), torch.from_numpy(grads), 0.1,
+                               mask=torch.from_numpy(mask), assume_unique=unique,
+                               unique_chunk=chunk)
+        runs.append(te)
+    a, b = runs
+    assert a.step == b.step == 2
+    # the chunks stop after the last valid id (deduplicated ids come sorted,
+    # valid first): a sampler's prefix of 1,700 ids takes two chunks, not three
+    last = -1
+    if mask.any():
+        last = np.nonzero(mask)[0].max() if unique else len(np.unique(ids[mask])) - 1
+    chunks = [min(1024, R - c0) for c0 in range(0, last + 1, 1024)]
+    assert len(chunks) == {"prefix": 2, "valid_after_padding": 3 if unique else 1,
+                           "no_valid": 0}[layout]
+    assert steps == [R, R] + chunks * 2
+    assert np.array_equal(a.to_array(), b.to_array())
+    for s in ("m", "v"):
+        assert np.array_equal(a.slot_to_array(s), b.slot_to_array(s))
+    je = jemb.Embedding.create(_mesh1(), n, DIM, optimizer=jemb.LazyAdam())
+    js = je.from_array(init)
+    for _ in range(2):
+        js = je.apply_gradients(js, jnp.asarray(ids), jnp.asarray(grads), 0.1,
+                                mask=jnp.asarray(mask), assume_unique=unique, unique_chunk=1024)
+    np.testing.assert_allclose(b.to_array(), je.to_array(js), **ROWS)
+    if layout == "no_valid":
+        assert np.array_equal(b.to_array(), init)
+
+
+def test_unique_chunk_must_be_a_multiple_of_1024():
+    te = temb.Embedding.create(N, DIM, device="cpu").from_array(np.zeros((N, DIM), np.float32))
+    ids, grads = torch.zeros(4, dtype=torch.int32), torch.zeros(4, DIM)
+    for bad in (0, 512, 1500, -1024):
+        with pytest.raises(InvalidInput, match="1024"):
+            te.apply_gradients(ids, grads, 0.1, unique_chunk=bad)
+    assert te.step == 0

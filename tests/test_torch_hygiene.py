@@ -20,6 +20,7 @@ from wholegraph_tpu_torch.models import HomoGNN
 from wholegraph_tpu_torch.ops import KERNELS
 from wholegraph_tpu_torch.ops import gather_kernels as G
 from wholegraph_tpu_torch.ops import host_kernels as H
+from wholegraph_tpu_torch.ops import sampling as SM
 from wholegraph_tpu_torch.ops import spmm_kernels as S
 from wholegraph_tpu_torch.utils.error import CudaError
 
@@ -68,7 +69,8 @@ def no_cuda(monkeypatch):
                                    "host_embedding", "build_synthetic_host_tier",
                                    "clustered_csr", "gat_model", "build_full_graph",
                                    "sharded_table", "sharded_table_from_array",
-                                   "sharded_table_host"])
+                                   "sharded_table_host", "weighted_graph",
+                                   "build_synthetic_weighted", "entry"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     calls = {
         "embedding": lambda: Embedding.create(10, 4),
@@ -84,6 +86,11 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
         "sharded_table": lambda: wt.ShardedTable.create(10, 4),
         "sharded_table_from_array": lambda: wt.ShardedTable.from_array(np.zeros((10, 4))),
         "sharded_table_host": lambda: wt.ShardedTable.create(10, 4, location="host"),
+        "weighted_graph": lambda: GraphStructure.from_coo(np.array([0, 1]), np.array([1, 0]), 2,
+                                                          edge_weight=np.ones(2)),
+        "build_synthetic_weighted": lambda: wt.build_synthetic(
+            wt.SageTrainConfig(n_nodes=10, sample_method="weighted")),
+        "entry": lambda: wt.entry.entry(),
     }
     with pytest.raises(CudaError, match="CUDA is not available"):
         calls[entry]()
@@ -102,6 +109,15 @@ def test_kernels_import_and_cpu_path_build_nothing(monkeypatch):
         state = wt.build_synthetic(cfg, device="cpu", seed=0, host_cache_ratio=ratio)
         assert np.isfinite(float(wt.train_step(state, c, state.labels[c.long()], seed=0)))
     assert isinstance(state.embedding, HostEmbedding)
+    # the weighted sampler (kernel K), a windowed plan (kernel D) and unique_chunk
+    import dataclasses
+    state = wt.build_synthetic(dataclasses.replace(cfg, sample_method="weighted"), device="cpu")
+    assert np.isfinite(float(wt.train_step(state, c, state.labels[c.long()], seed=0)))
+    ml = state.graph.multilayer_sample(c, cfg.fanouts, weighted=True).with_windowed_agg()
+    rows = state.embedding.gather(ml.unique_gids)
+    assert torch.isfinite(state.model(rows, ml)).all()
+    state.embedding.apply_gradients(ml.unique_gids, torch.ones_like(rows), 0.1,
+                                    mask=ml.unique_mask, unique_chunk=1024)
     # full-graph SAGE and GAT, forward and backward (kernels A, G and H)
     for model_type in ("sage", "gat"):
         fcfg = wt.FullGraphConfig(n_nodes=60, deg=4, width=8, dim=8, hidden=8, num_classes=3,
@@ -170,6 +186,19 @@ def test_wrappers_do_not_fall_back_off_the_cpu():
             fn(torch.zeros(16, 8), ids)
     with pytest.raises(CudaError):
         G.scatter_rows_masked(torch.zeros(16, 8), ids, torch.zeros(4, 8, device="meta"))
+    # kernel K, both routes, and its entry point
+    w = torch.ones(4)
+    pairs = SM.interleave_col_weights(col, w)
+    for args in ((row_ptr.to("meta"), col.to("meta"), w.to("meta"), ids, 2, 0, 0),
+                 (row_ptr, col, w, ids, 2, 0, 0)):
+        with pytest.raises(CudaError):
+            SM.sample_hop_weighted(*args)
+    with pytest.raises(CudaError):
+        SM.sample_hop_weighted(row_ptr.to("meta"), None, None, ids, 2, 0, 0,
+                               pairs=pairs.to("meta"))
+    with pytest.raises(CudaError):
+        SM.csr_sample_neighbors(row_ptr, col, ids, 2, weights=w, max_degree=2,
+                                cw_blocks=pairs.to("meta"))
 
 
 def test_library_path_tracks_the_source(tmp_path, monkeypatch):

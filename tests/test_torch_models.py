@@ -108,3 +108,42 @@ def test_dropout_draws_from_the_given_generator():
     c = model(tx, tm, train=True, generator=torch.Generator().manual_seed(6))
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert torch.equal(model(tx, tm), model(tx, tm))  # eval: no dropout
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "sum"])
+def test_sage_with_windowed_plan_matches_jax(aggregator):
+    """A sample annotated by ``with_windowed_agg`` sends the sampled SAGE
+    convs through ``padded_reduce_windowed`` (JAX: its per-run windowed
+    SpMM, taken on the CPU for widths of 128 and at most 4,096 rows; the
+    port: kernel D): logits and gradients as JAX's, and as the same model's
+    on the sample without the plan."""
+    Dw = Hw = 128
+    rs = np.random.RandomState(3)
+    src, dst = rs.randint(0, N, N * 5), rs.randint(0, N, N * 5)
+    centers = rs.choice(N, 16, replace=False).astype(np.int32)
+    jm = JaxGraph.from_coo(src, dst, N).multilayer_sample(jnp.asarray(centers), (3, 4), seed=1)
+    tm = GraphStructure.from_coo(src, dst, N, device="cpu").multilayer_sample(
+        torch.from_numpy(centers), (3, 4), seed=1)
+    jw, tw = jm.with_windowed_agg(256), tm.with_windowed_agg(256)
+    assert all(h.run_bounds == g.run_bounds and h.windows == g.windows
+               for h, g in zip(tw.hops, jw.hops))
+    x = rs.randn(tm.unique_gids.shape[0], Dw).astype(np.float32) * tm.unique_mask.numpy()[:, None]
+    labels = rs.randint(0, C, 16).astype(np.int32)
+    jmodel = JaxGNN(model_type="sage", hidden_dim=Hw, num_classes=C, num_layers=2,
+                    aggregator=aggregator)
+    params = jmodel.init(jax.random.PRNGKey(1), jnp.asarray(x), sample=jw)
+    jl, (jdp, jdx) = jax.value_and_grad(
+        lambda p, r: jax_ce(jmodel.apply(p, r, sample=jw), jnp.asarray(labels)),
+        argnums=(0, 1))(params, jnp.asarray(x))
+    model = HomoGNN(Dw, Hw, C, num_layers=2, aggregator=aggregator, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    tx = torch.from_numpy(x).requires_grad_()
+    loss = cross_entropy_loss(model(tx, tw), torch.from_numpy(labels))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jl), **FWD)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **GRAD)
+    jgrads = params_from_jax(jax.tree.map(np.asarray, jdp))
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), jgrads[name].numpy(), err_msg=name, **GRAD)
+    with torch.no_grad():
+        assert torch.equal(model(tx, tw), model(tx, tm))

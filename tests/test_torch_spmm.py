@@ -1,6 +1,7 @@
 """Port parity: padded neighbourhood aggregation (kernel D's wrapper and
 its autograd on the CPU, where it runs its plain version) against the JAX
-package's padded_reduce / padded_softmax, values and gradients.
+package's padded_reduce / padded_softmax / padded_reduce_windowed, values
+and gradients.
 
 Tolerances: the port sums the K axis in f32 in another order than XLA, so
 forward values agree to rtol/atol 1e-5 and gradients to 1e-4."""
@@ -14,6 +15,7 @@ import torch
 from wholegraph_tpu.ops import spmm as js
 from wholegraph_tpu_torch.ops import spmm as ts
 from wholegraph_tpu_torch.ops import spmm_kernels as tk
+from wholegraph_tpu_torch.utils.error import InvalidInput
 
 torch.set_num_threads(1)
 
@@ -80,3 +82,72 @@ def test_padded_gather_neighbors_and_softmax_match_jax():
     np.testing.assert_allclose(
         ts.padded_softmax(torch.from_numpy(logits), torch.from_numpy(mask)).numpy(),
         np.asarray(js.padded_softmax(jnp.asarray(logits), jnp.asarray(mask))), **FWD)
+
+
+def _windowed_block(seed, n=3000, B=64, fanouts=(5, 6), width=64):
+    """A real two-hop sample over a locality-ordered CSR, as
+    ``bench_spmm_sampled`` builds one (``bench.py:477-545``), small: the
+    same sample in both packages, and the deepest hop's block."""
+    from wholegraph_tpu.graph import GraphStructure as JaxGraph
+    from wholegraph_tpu_torch.graph import GraphStructure
+
+    rs = np.random.RandomState(seed)
+    counts = rs.randint(4, 16, n)
+    rp = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    col = (np.repeat(np.arange(n), counts)
+           + rs.randint(-width // 2, width // 2 + 1, int(rp[-1]))).clip(0, n - 1).astype(np.int32)
+    centers = np.sort(rs.choice(n, B, replace=False)).astype(np.int32)
+    jg = JaxGraph(row_ptr=jnp.asarray(rp), col=jnp.asarray(col), node_count=n,
+                  edge_count=int(rp[-1]), max_degree=int(counts.max()))
+    tg = GraphStructure(torch.from_numpy(rp), torch.from_numpy(col), n)
+    jm = jg.multilayer_sample(jnp.asarray(centers), list(fanouts), seed=1)
+    tm = tg.multilayer_sample(torch.from_numpy(centers), list(fanouts), seed=1)
+    return jm, tm
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("windows", [2048, 128])
+def test_padded_reduce_windowed_and_grad_match_jax(reduce, windows):
+    """``padded_reduce_windowed`` against the JAX one (its per-run
+    ``spmm_window`` passes and edge residual, on the CPU) on a real sample's
+    plan, forward and gradient; windows of 128 rows leave edges to the
+    residual. Tolerance: f32 reassociation, 1e-5 relative to the largest
+    output."""
+    jm, tm = _windowed_block(0)
+    L = 1
+    rb = tm.run_bounds(L)
+    assert rb == jm.run_bounds(L) and rb[-1] <= 4096  # JAX's CPU guard takes the windowed branch
+    wins = tm.with_windowed_agg(windows).hops[L].windows
+    assert wins == jm.with_windowed_agg(windows).hops[L].windows
+    h = tm.hops[L]
+    U = rb[-1]
+    rs = np.random.RandomState(1)
+    x = rs.randn(U, 128).astype(np.float32)
+    ct = rs.randn(h.nbr_idx.shape[0], 128).astype(np.float32)
+    jout, vjp = jax.vjp(lambda v: js.padded_reduce_windowed(
+        v, jnp.asarray(h.nbr_idx.numpy()), jnp.asarray(h.mask.numpy()), reduce, run_bounds=rb,
+        windows=wins), jnp.asarray(x))
+    (jdx,) = vjp(jnp.asarray(ct))
+    tx = torch.from_numpy(x).requires_grad_()
+    out = ts.padded_reduce_windowed(tx, h.nbr_idx, h.mask, reduce, run_bounds=rb, windows=wins)
+    out.backward(torch.from_numpy(ct))
+    for a, b in ((out.detach().numpy(), np.asarray(jout)), (tx.grad.numpy(), np.asarray(jdx))):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max())
+    # the same function as the padded reduce: kernel D either way
+    assert torch.equal(out.detach(), ts.padded_reduce(tx.detach(), h.nbr_idx, h.mask, reduce))
+
+
+def test_padded_reduce_windowed_contract():
+    """JAX's checks: sum or mean, run_bounds ascending from 0 to at most U,
+    one window per run; D need not be a multiple of 128 (a TPU limit)."""
+    x, nbr, mask, _ = _block(2, U=30, D=16)
+    tx, tn, tm = torch.from_numpy(x), torch.from_numpy(nbr), torch.from_numpy(mask)
+    out = ts.padded_reduce_windowed(tx, tn, tm, "mean", run_bounds=(0, 12, 30), windows=128)
+    assert torch.equal(out, ts.padded_reduce(tx, tn, tm, "mean"))
+    for kw in (dict(reduce="max"), dict(run_bounds=(1, 30)), dict(run_bounds=(0, 12, 12)),
+               dict(run_bounds=(0, 31)), dict(windows=(128, 128, 128))):
+        args = dict(reduce="sum", run_bounds=(0, 12, 30), windows=(128, 128))
+        args.update(kw)
+        reduce = args.pop("reduce")
+        with pytest.raises(InvalidInput):
+            ts.padded_reduce_windowed(tx, tn, tm, reduce, **args)

@@ -14,10 +14,14 @@ host memory behind a cache of hot rows on the card); the third is
 full-graph message passing (:mod:`.full_graph`: SAGE, GCN and GAT over a
 :class:`.models.FullGraph`, forward and backward); the fourth is the sharded
 row store on one card (:class:`.memory.ShardedTable` with its
-:class:`.memory.PartitionPlan`).
+:class:`.memory.PartitionPlan`); the eighth adds weighted sampling
+(``SageTrainConfig(sample_method="weighted")``, kernel K), the windowed
+sampled aggregation, the padded/CSR graph ops, the apply's
+``unique_chunk``, the synthetic dataset (:mod:`.graph.dataset`) and the
+compile-check entry (:mod:`.entry`).
 """
 
-from . import embedding, full_graph, graph, kernels, memory, models, ops, utils
+from . import embedding, entry, full_graph, graph, kernels, memory, models, ops, utils
 from .full_graph import (FullGraphConfig, build_full_graph, clustered_csr, eval_full_graph,
                          full_graph_value_and_grad)
 from .memory import PartitionPlan, ShardedTable
@@ -27,6 +31,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "embedding",
+    "entry",
     "full_graph",
     "graph",
     "kernels",

@@ -48,8 +48,8 @@
 //
 // wg_sample_cols: the fetch alone, nbrs[b, k] = mask[b, k] ?
 // col[clamp(start[b] + pos[b, k], 0, E - 1)] : -1, for a position draw made
-// elsewhere (the weighted sampler's, as the JAX weighted branch calls
-// `_fetch_cols`). One thread per (b, k).
+// elsewhere. No path launches it (kernel K fetches the weighted sampler's
+// columns itself); chip_smoke.py checks and times it. One thread per (b, k).
 //
 // Bound: the hop moves little (B * (4 + 8 + 4) bytes of centres, row_ptr
 // pairs and degrees, 4 bytes of `col` per valid slot, B * K * 13 bytes of

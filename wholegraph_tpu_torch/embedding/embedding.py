@@ -138,17 +138,29 @@ class Embedding:
 
     @torch.no_grad()
     def apply_gradients(self, ids: torch.Tensor, grads: torch.Tensor, lr: float, *,
-                        mask: Optional[torch.Tensor] = None,
-                        assume_unique: bool = False) -> "Embedding":
+                        mask: Optional[torch.Tensor] = None, assume_unique: bool = False,
+                        unique_chunk: Optional[int] = None) -> "Embedding":
         """Sparse optimizer step from (ids, row gradients), in place
         (wholememory_embedding_gather_gradient_apply analog).
 
         Duplicate ids are summed unless ``assume_unique=True`` (the caller
         warrants that the masked ids are unique, as ``append_unique``'s
         output is). ``mask`` marks valid slots: masked-out and out-of-range
-        ids touch neither the table nor any optimizer slot."""
+        ids touch neither the table nor any optimizer slot.
+
+        ``unique_chunk`` (a positive multiple of 1024, ``embedding.py:
+        106-135``): the deduplicated ids go through the optimizer in chunks
+        of that many, stopping after the last chunk that holds a valid id, so
+        the cost follows the rows really touched, not the buffer (a
+        sampler's valid ids come first). Exact for any layout of the ids,
+        valid ids after padding included: the table and slots come out
+        bit-equal to the call without it. Finding the last valid position
+        costs one read from the device to the host."""
         check_input(ids.dim() == 1 and grads.shape == (ids.shape[0], self.dim),
                     f"ids {tuple(ids.shape)} / grads {tuple(grads.shape)} mismatch")
+        if unique_chunk is not None:
+            check_input(unique_chunk >= 1024 and unique_chunk % 1024 == 0,
+                        "unique_chunk must be a positive multiple of 1024")
         self.step += 1
         oob = self.n
         valid = (ids >= 0) & (ids < oob)
@@ -159,7 +171,20 @@ class Embedding:
             uids, ugrads = ids, torch.where(valid[:, None], grads.float(), 0.0)
         else:
             uids, ugrads = _dedup_sorted(ids, grads, oob)
-        valid = uids < oob
+        R = uids.shape[0]
+        if unique_chunk is None or R <= unique_chunk:
+            self._step_rows(uids, ugrads, lr)
+            return self
+        valid_at = torch.nonzero(uids < oob)
+        last = int(valid_at[-1, 0]) if valid_at.numel() else -1  # the one device-to-host read
+        for c0 in range(0, last + 1, unique_chunk):
+            self._step_rows(uids[c0:c0 + unique_chunk], ugrads[c0:c0 + unique_chunk], lr)
+        return self
+
+    def _step_rows(self, uids: torch.Tensor, ugrads: torch.Tensor, lr: float) -> None:
+        """The optimizer on the rows of ``uids`` (unique below ``n``; ``n``
+        marks padding): kernel A reads table and slots, kernel B writes them."""
+        valid = uids < self.n
         take_idx = torch.where(valid, uids, 0)
         names = tuple(sorted(self.slots))
         rows = gather_rows(self.table, take_idx).float()
@@ -169,7 +194,6 @@ class Embedding:
         scatter_rows(self.table, write_idx, new_rows.to(self.dtype).contiguous())
         for s in names:
             scatter_rows(self.slots[s], write_idx, new_srows[s].contiguous())
-        return self
 
     # -- host access (tests / checkpoint) -------------------------------------
 

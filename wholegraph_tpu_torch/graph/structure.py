@@ -1,9 +1,11 @@
 """Graph structure and multi-layer mini-batch sampling, one device.
 
-Port of the unweighted, single-device part of
-``wholegraph_tpu/graph/structure.py``: :class:`HopSubgraph`,
-:class:`MultilayerSample` and :class:`GraphStructure` with ``from_coo``,
-``to_full_graph``, ``sample_one_hop`` and ``multilayer_sample``.
+Port of the single-device part of ``wholegraph_tpu/graph/structure.py``:
+:class:`HopSubgraph` (with its windowed-aggregation plan),
+:class:`MultilayerSample` (``run_bounds``, ``with_windowed_agg``) and
+:class:`GraphStructure` with ``from_coo`` (edge weights included),
+``with_weighted_fastpath``, ``to_full_graph``, ``sample_one_hop`` and
+``multilayer_sample``, uniform or weighted.
 
 Shape discipline is the JAX package's: every hop's output is padded. Layer
 l has ``B * prod_{i<l}(K_i + 1)`` target slots; ``append_unique`` keeps the
@@ -23,9 +25,9 @@ import numpy as np
 import torch
 
 from ..ops.graph_ops import append_unique
-from ..ops.sampling import SampleResult, csr_sample_neighbors
+from ..ops.sampling import SampleResult, csr_sample_neighbors, interleave_col_weights
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.error import check_input
+from ..utils.error import NotSupported, check_input
 
 
 @dataclasses.dataclass
@@ -35,11 +37,16 @@ class HopSubgraph:
     nbr_idx:     [B_l, K] int32 neighbour positions in the NEXT level's unique list.
     mask:        [B_l, K] edge validity.
     center_mask: [B_l] target-slot validity.
+    run_bounds, windows: the windowed-aggregation plan
+        (:meth:`MultilayerSample.with_windowed_agg`); a conv that finds it
+        aggregates through ``padded_reduce_windowed``.
     """
 
     nbr_idx: torch.Tensor
     mask: torch.Tensor
     center_mask: torch.Tensor
+    run_bounds: Optional[tuple] = None
+    windows: Optional[tuple] = None
 
     @property
     def num_targets(self) -> int:
@@ -65,42 +72,97 @@ class MultilayerSample:
     level_gids: List[torch.Tensor] = dataclasses.field(default_factory=list)
     level_masks: List[torch.Tensor] = dataclasses.field(default_factory=list)
 
+    def run_bounds(self, level: int) -> tuple:
+        """Run boundaries of the unique list of the hop-``level`` block
+        (whose x rows are ``level_gids[level + 1]``): each level's unique
+        list is [previous level's list | new ids ascending]
+        (``append_unique``), so the boundaries are the level buffer sizes
+        (``structure.py:109-117``)."""
+        return (0,) + tuple(int(g.shape[0]) for g in self.level_gids[: level + 2])
+
+    def with_windowed_agg(self, windows=2048) -> "MultilayerSample":
+        """A copy whose every hop carries its windowed-aggregation plan: the
+        run boundaries and per-run windows (``windows`` an int for every run,
+        rounded up to 128 rows within the run's size, or a per-hop tuple of
+        per-run tuples), as ``structure.py:119-137`` gives them."""
+        hops = []
+        for l, h in enumerate(self.hops):
+            rb = self.run_bounds(l)
+            if isinstance(windows, int):
+                w = tuple(min(-(-min(b2 - b1, windows) // 128) * 128, windows)
+                          for b1, b2 in zip(rb, rb[1:]))
+            else:
+                w = tuple(windows[l])
+            hops.append(dataclasses.replace(h, run_bounds=rb, windows=w))
+        return dataclasses.replace(self, hops=hops)
+
 
 class GraphStructure:
     """CSR graph on one device (torch/graph_structure.py:21 analog).
 
     ``row_ptr`` [N+1] and ``col`` [E] are int32 tensors on the graph's
     device; build one from device tensors directly or from a host COO list
-    with :meth:`from_coo`."""
+    with :meth:`from_coo`. ``edge_weight`` [E] (float32) serves weighted
+    sampling, which needs ``max_degree``: a weighted graph built without one
+    reads it from ``row_ptr`` once. ``cw_blocks`` is the pair table of
+    :meth:`with_weighted_fastpath`."""
 
     def __init__(self, row_ptr: torch.Tensor, col: torch.Tensor, node_count: int,
-                 edge_count: Optional[int] = None, max_degree: Optional[int] = None):
+                 edge_count: Optional[int] = None, max_degree: Optional[int] = None,
+                 edge_weight: Optional[torch.Tensor] = None,
+                 cw_blocks: Optional[torch.Tensor] = None):
         check_input(row_ptr.dim() == 1 and row_ptr.shape[0] == node_count + 1,
                     f"row_ptr must be [{node_count + 1}], got {tuple(row_ptr.shape)}")
         check_input(col.dim() == 1, "col must be 1-D")
         check_input(row_ptr.device == col.device, "row_ptr and col on different devices")
         check_input(col.shape[0] < 2**31, "edge offsets are int32: the graph must have < 2^31 edges")
+        for name, t, shape in (("edge_weight", edge_weight, col.shape),
+                               ("cw_blocks", cw_blocks, (col.shape[0], 2))):
+            check_input(t is None or (tuple(t.shape) == tuple(shape) and t.device == col.device),
+                        f"{name} must be {tuple(shape)} on the graph's device")
         self.row_ptr = row_ptr.to(torch.int32)
         self.col = col.to(torch.int32)
         self.node_count = int(node_count)
         self.edge_count = int(col.shape[0] if edge_count is None else edge_count)
+        self.edge_weight = None if edge_weight is None else edge_weight.to(torch.float32)
+        self.cw_blocks = cw_blocks
+        if max_degree is None and edge_weight is not None:
+            max_degree = int((self.row_ptr[1:] - self.row_ptr[:-1]).max()) if node_count else 0
         self.max_degree = max_degree
 
     @property
     def device(self) -> torch.device:
         return self.col.device
 
+    def with_weighted_fastpath(self) -> "GraphStructure":
+        """A copy carrying the pair table ``interleave_col_weights(col,
+        edge_weight)`` ([E, 2] int32, E x 8 bytes more on the device):
+        kernel K then reads an edge's weight and neighbour in one 8-byte
+        load. The sample is the same bits either way."""
+        check_input(self.edge_weight is not None, "with_weighted_fastpath needs edge_weight")
+        return GraphStructure(self.row_ptr, self.col, self.node_count, self.edge_count,
+                              self.max_degree, self.edge_weight,
+                              interleave_col_weights(self.col, self.edge_weight))
+
     @staticmethod
     def from_coo(src: np.ndarray, dst: np.ndarray, node_count: int, *,
-                 add_reverse: bool = False, device: DeviceLike = "cuda") -> "GraphStructure":
-        """Host-side CSR build from a COO edge list, moved to ``device``."""
+                 edge_weight: Optional[np.ndarray] = None, add_reverse: bool = False,
+                 device: DeviceLike = "cuda") -> "GraphStructure":
+        """Host-side CSR build from a COO edge list, moved to ``device``;
+        ``edge_weight`` follows its edges (doubled with ``add_reverse``,
+        permuted with the sort by source)."""
         dev = resolve_device(device)
         src = np.asarray(src, dtype=np.int64)
         dst = np.asarray(dst, dtype=np.int64)
         if add_reverse:
             src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+            if edge_weight is not None:
+                edge_weight = np.concatenate([edge_weight, edge_weight])
         order = np.argsort(src, kind="stable")
         src, dst = src[order], dst[order]
+        weight = None
+        if edge_weight is not None:
+            weight = torch.from_numpy(np.asarray(edge_weight)[order].astype(np.float32)).to(dev)
         counts = np.bincount(src, minlength=node_count)
         row_ptr = np.concatenate([[0], np.cumsum(counts)])
         return GraphStructure(
@@ -109,6 +171,7 @@ class GraphStructure:
             node_count,
             edge_count=len(dst),
             max_degree=int(counts.max()) if node_count else 0,
+            edge_weight=weight,
         )
 
     def to_full_graph(self, *, windowed: bool = False, tile: int = 256):
@@ -143,16 +206,27 @@ class GraphStructure:
     # -- sampling -------------------------------------------------------------
 
     def sample_one_hop(self, centers: torch.Tensor, max_sample: int, *, seed: int = 0,
-                       hop: int = 0) -> SampleResult:
-        """unweighted_sample_without_replacement_one_hop analog."""
-        return csr_sample_neighbors(self.row_ptr, self.col, centers, max_sample,
-                                    seed=seed, hop=hop)
+                       hop: int = 0, weighted: bool = False) -> SampleResult:
+        """{un,}weighted_sample_without_replacement_one_hop analog
+        (graph_structure.py:77-138). ``weighted`` samples by ``edge_weight``
+        (through the pair table when the graph has one); as in the JAX
+        package, a graph without weights samples uniformly either way."""
+        return csr_sample_neighbors(
+            self.row_ptr, self.col, centers, max_sample, seed=seed, hop=hop,
+            weights=self.edge_weight if weighted else None, max_degree=self.max_degree,
+            cw_blocks=self.cw_blocks if weighted else None)
 
     def multilayer_sample(self, centers: torch.Tensor, fanouts: Sequence[int], *,
-                          seed: int = 0,
-                          center_mask: Optional[torch.Tensor] = None) -> MultilayerSample:
+                          seed: int = 0, weighted: bool = False,
+                          center_mask: Optional[torch.Tensor] = None,
+                          with_degrees: bool = False) -> MultilayerSample:
         """multilayer_sample_without_replacement analog: per layer, sample
-        and ``append_unique``, producing nested padded subgraphs."""
+        (weighted or not) and ``append_unique``, producing nested padded
+        subgraphs. ``with_degrees`` (the sampled GCN's true degrees) is not
+        ported yet and raises :class:`NotSupported`."""
+        if with_degrees:
+            raise NotSupported("multilayer_sample(with_degrees=True) comes with the sampled "
+                               "GCN, which is not ported yet")
         n = self.node_count
         gids = centers.to(torch.int32)
         gmask = (torch.ones(gids.shape, dtype=torch.bool, device=gids.device)
@@ -161,7 +235,8 @@ class GraphStructure:
         level_gids, level_masks = [gids], [gmask]
         for l, K in enumerate(fanouts):
             U = gids.shape[0]
-            res = self.sample_one_hop(torch.where(gmask, gids, 0), K, seed=seed, hop=l)
+            res = self.sample_one_hop(torch.where(gmask, gids, 0), K, seed=seed, hop=l,
+                                      weighted=weighted)
             emask = res.mask & gmask[:, None]
             # distinct dummy ids for padding targets keep their slots unique
             dummy = n + torch.arange(U, dtype=torch.int32, device=gids.device)

@@ -125,6 +125,19 @@ def _not_ported(conv: str) -> None:
                        "(only the full-graph branch)")
 
 
+def _hop_reduce(x: torch.Tensor, g: HopSubgraph, reduce: str) -> torch.Tensor:
+    """Sampled-block aggregation (``conv.py:195-210``): a hop that carries a
+    windowed plan (``MultilayerSample.with_windowed_agg``) goes through
+    ``padded_reduce_windowed`` for sum and mean, any other through
+    ``padded_reduce``. Both are kernel D on the card and exact; JAX's extra
+    guards (D a multiple of 128, at most 4,096 rows off the TPU) are its
+    windowed kernel's and stay behind."""
+    if g.run_bounds is not None and g.windows is not None and reduce in ("sum", "mean"):
+        return S.padded_reduce_windowed(x, g.nbr_idx, g.mask, reduce,
+                                        run_bounds=g.run_bounds, windows=g.windows)
+    return S.padded_reduce(x, g.nbr_idx, g.mask, reduce)
+
+
 class SAGEConv(nn.Module):
     """GraphSAGE conv: ``concat[x_self, agg(x_neigh)] @ W + b``
     (CuGraphSAGEConv analog, sage_conv.py:73-95: agg_concat_n2n + linear).
@@ -143,7 +156,7 @@ class SAGEConv(nn.Module):
     def forward(self, x: torch.Tensor, g: Adj) -> torch.Tensor:
         if isinstance(g, HopSubgraph):
             xs = x[: g.num_targets]
-            xn = S.padded_reduce(x, g.nbr_idx, g.mask, self.aggregator)
+            xn = _hop_reduce(x, g, self.aggregator)
         else:
             xs, xn = x, _fg_spmm(g, x, self.aggregator)
         return self.proj(torch.cat([xs, xn], dim=-1))

@@ -5,18 +5,20 @@ from .gather import local_add, local_take, local_take_sorted, local_write
 from .gather_kernels import (ROW_GATHER, ROW_GATHER_MASKED, ROW_SCATTER, SAMPLE_COLS,
                              SORTED_GATHER, gather_rows, gather_rows_masked, gather_rows_sorted,
                              sample_cols, scatter_rows, scatter_rows_masked)
-from .graph_ops import append_unique
+from .graph_ops import add_self_loop_padded, append_unique, csr_add_self_loop, padded_to_csr
 from .host_kernels import (HOST_GATHER, HOST_SCATTER, host_gather_rows, host_scatter_rows,
                            pinned_empty)
-from .sampling import SAMPLE_HOP, SampleResult, csr_sample_neighbors, sample_hop_uniform
-from .spmm import padded_gather_neighbors, padded_reduce, padded_softmax
+from .sampling import (SAMPLE_HOP, SAMPLE_HOP_WEIGHTED, SampleResult, csr_sample_neighbors,
+                       interleave_col_weights, sample_hop_uniform, sample_hop_weighted)
+from .spmm import (padded_gather_neighbors, padded_reduce, padded_reduce_windowed,
+                   padded_softmax)
 from .spmm_kernels import (CSR_SDDMM, CSR_SPMM, NEIGHBOR_AGG, CsrSddmm, CsrSpmm, NeighborReduce,
                            csr_sddmm, csr_spmm, neighbor_reduce, sddmm_window, spmm_window,
                            transpose_csr)
 
 # every hand-written kernel of the port, one per C entry point
 KERNELS = (ROW_GATHER, ROW_SCATTER, SAMPLE_HOP, SAMPLE_COLS, NEIGHBOR_AGG, HOST_GATHER,
-           HOST_SCATTER, CSR_SPMM, CSR_SDDMM, SORTED_GATHER, ROW_GATHER_MASKED)
+           HOST_SCATTER, CSR_SPMM, CSR_SDDMM, SORTED_GATHER, ROW_GATHER_MASKED, SAMPLE_HOP_WEIGHTED)
 
 __all__ = [
     "KERNELS",
@@ -32,14 +34,20 @@ __all__ = [
     "scatter_rows",
     "scatter_rows_masked",
     "append_unique",
+    "padded_to_csr",
+    "csr_add_self_loop",
+    "add_self_loop_padded",
     "host_gather_rows",
     "host_scatter_rows",
     "pinned_empty",
     "SampleResult",
     "csr_sample_neighbors",
     "sample_hop_uniform",
+    "sample_hop_weighted",
+    "interleave_col_weights",
     "padded_gather_neighbors",
     "padded_reduce",
+    "padded_reduce_windowed",
     "padded_softmax",
     "NeighborReduce",
     "neighbor_reduce",

@@ -304,8 +304,10 @@ def sample_cols_plain(col: torch.Tensor, start: torch.Tensor, pos: torch.Tensor,
 
 def sample_cols(col: torch.Tensor, start: torch.Tensor, pos: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-    """The sampled neighbours ``col[start[b] + pos[b, k]]`` of a uniform or
-    weighted position draw, ``-1`` where ``mask`` is False; any fanout K.
+    """The sampled neighbours ``col[start[b] + pos[b, k]]`` of a position
+    draw made elsewhere, ``-1`` where ``mask`` is False; any fanout K. C's
+    fetch route: kernels C and K fetch their own columns, so no path calls
+    it.
 
     col: [E] int32; start: [B] int32 (row_ptr of each centre);
     pos, mask: [B, K] int32 / bool. Returns [B, K] int32."""

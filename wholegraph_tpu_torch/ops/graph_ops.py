@@ -1,8 +1,11 @@
-"""Append-unique relabelling of a sampled hop.
+"""Graph ops of a sampled hop: append-unique relabelling and the padded ↔
+compacted CSR conversions.
 
-Port of ``wholegraph_tpu/ops/graph_ops.py:28-94`` (the reference's
-graph_append_unique, graph_op.h:38-44). Sort-based, static-shaped, no host
-synchronisation: the same contract as the JAX package and bit-equal to it.
+Port of ``wholegraph_tpu/ops/graph_ops.py``: ``append_unique`` (``:28-94``,
+the reference's graph_append_unique, graph_op.h:38-44), ``padded_to_csr``,
+``csr_add_self_loop`` and ``add_self_loop_padded`` (``:102-140``).
+Sort- and scatter-based, static-shaped, no host synchronisation: the same
+contracts as the JAX package and bit-equal to it.
 """
 
 from __future__ import annotations
@@ -76,3 +79,50 @@ def append_unique(targets: torch.Tensor, neighbors: torch.Tensor, neighbor_mask:
     pos_concat[order] = out_pos_elem
     neighbor_map = torch.where(neighbor_mask, pos_concat[T:], -1).to(torch.int32)
     return unique_ids, unique_count, neighbor_map
+
+
+def padded_to_csr(neighbors: torch.Tensor, mask: torch.Tensor):
+    """Compact a padded [B, K] adjacency into CSR: ``row_ptr`` [B+1] int32,
+    ``col`` [B*K] int32 left-packed with -1 past ``row_ptr[B]``, and the edge
+    count ``row_ptr[B]`` (a 0-dim tensor)."""
+    B, K = neighbors.shape
+    dev = neighbors.device
+    counts = mask.sum(dim=1, dtype=torch.int32)
+    row_ptr = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                         torch.cumsum(counts, 0, dtype=torch.int32)])
+    rank = torch.cumsum(mask.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    pos = torch.where(mask, row_ptr[:-1, None] + rank, B * K).reshape(-1).long()
+    col = torch.full((B * K + 1,), -1, dtype=torch.int32, device=dev)
+    col.scatter_(0, pos, neighbors.reshape(-1).to(torch.int32))  # masked slots land on the extra entry
+    return row_ptr, col[: B * K], row_ptr[-1]
+
+
+def csr_add_self_loop(row_ptr: torch.Tensor, col: torch.Tensor, num_edges=None):
+    """Insert a self edge at the head of every row (csr_add_self_loop
+    analog, graph_op.h:55-59). ``col`` holds local node ids 0..B-1 and may
+    be padded past ``row_ptr[B]``; the output ``col`` has the static size
+    E + B, with -1 past the last edge. ``num_edges`` is accepted and unused,
+    as in the JAX package."""
+    B = row_ptr.shape[0] - 1
+    E = col.shape[0]
+    dev = col.device
+    new_row_ptr = row_ptr + torch.arange(B + 1, dtype=row_ptr.dtype, device=dev)
+    edge_pos = torch.arange(E, dtype=torch.int64, device=dev)
+    row_of = torch.searchsorted(row_ptr.long(), edge_pos, right=True) - 1
+    valid = edge_pos < row_ptr[-1].long()
+    drop = E + B  # one extra entry takes every dropped write
+    out = torch.full((E + B + 1,), -1, dtype=col.dtype, device=dev)
+    out.scatter_(0, torch.where(valid, edge_pos + row_of + 1, drop), col)
+    heads = new_row_ptr[:-1].long()
+    out.scatter_(0, torch.where((heads >= 0) & (heads < E + B), heads, drop),
+                 torch.arange(B, dtype=col.dtype, device=dev))
+    return new_row_ptr, out[: E + B]
+
+
+def add_self_loop_padded(neighbors: torch.Tensor, mask: torch.Tensor, self_ids: torch.Tensor):
+    """Padded self-loop insertion: [B, K+1] neighbours and mask with the
+    centre itself, always valid, in slot 0."""
+    nbrs = torch.cat([self_ids[:, None].to(neighbors.dtype), neighbors], dim=1)
+    m = torch.cat([torch.ones((mask.shape[0], 1), dtype=torch.bool, device=mask.device), mask],
+                  dim=1)
+    return nbrs, m

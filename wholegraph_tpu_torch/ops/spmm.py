@@ -3,10 +3,12 @@ regime for full graphs.
 
 Port of ``wholegraph_tpu/ops/spmm.py``:
 
-* padded regime (``:35-107``): ``padded_gather_neighbors``,
-  ``padded_reduce`` and ``padded_softmax``. On the TPU ``padded_reduce``
-  gathered rows with ``_gather_kernel`` and summed them in XLA; here sum
-  and mean go through the fused kernel D
+* padded regime (``:35-260``): ``padded_gather_neighbors``,
+  ``padded_reduce``, ``padded_softmax`` and ``padded_reduce_windowed``. On
+  the TPU ``padded_reduce`` gathered rows with ``_gather_kernel`` and summed
+  them in XLA, and ``padded_reduce_windowed`` ran ``_spmm_window_kernel``
+  once per run of the unique list plus an edge residual; here sum and mean
+  of both go through the fused kernel D
   (:class:`~wholegraph_tpu_torch.ops.spmm_kernels.NeighborReduce`), and max
   stays plain PyTorch, as it was plain XLA.
 * COO regime (``:257-401``): ``spmm``, ``sddmm``, ``sddmm_chunked``,
@@ -22,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.error import check_input
 from .gather import local_take
 from .spmm_kernels import NeighborReduce
 
@@ -46,6 +49,35 @@ def padded_reduce(x: torch.Tensor, nbr_idx: torch.Tensor, mask: torch.Tensor,
         out = torch.where(mask[..., None], neigh, float("-inf")).amax(dim=1)
         return torch.where(mask.any(dim=1, keepdim=True), out, 0.0)
     raise ValueError(f"unknown reduce {reduce!r}")
+
+
+def padded_reduce_windowed(x: torch.Tensor, nbr_idx: torch.Tensor, mask: torch.Tensor,
+                           reduce: str = "sum", *, run_bounds, windows, tile: int = 256,
+                           residual_cap_frac: float = 0.25) -> torch.Tensor:
+    """Sampled-block aggregation under a windowed plan (``spmm.py:134-260``):
+    the exact masked sum or mean of ``x`` [U, D] over the padded
+    ``nbr_idx``/``mask`` [B, K] block, in x's dtype, differentiable in x.
+
+    The contract is the JAX package's: ``reduce`` is ``sum`` or ``mean``;
+    ``run_bounds`` is the ascending tuple ``(0, T, U1, ..., U_last)`` of the
+    unique list's runs (``MultilayerSample.run_bounds``), ending at or below
+    U; ``windows`` one window size for every run, or one per run. On the TPU
+    the plan set one ``_spmm_window_kernel`` pass per run and an edge
+    residual, and D had to be a multiple of 128 for the MXU; kernel D
+    computes the same function exactly in one launch, with its gradient,
+    whatever the locality, so the plan, ``tile`` and ``residual_cap_frac``
+    are checked and unused."""
+    check_input(reduce in ("sum", "mean"), f"unknown reduce {reduce!r}")
+    check_input(x.dim() == 2 and nbr_idx.dim() == 2, "x must be [U, D] and nbr_idx [B, K]")
+    U = x.shape[0]
+    rb = tuple(int(b) for b in run_bounds)
+    check_input(len(rb) >= 2 and rb[0] == 0 and all(a < b for a, b in zip(rb, rb[1:]))
+                and rb[-1] <= U, f"bad run_bounds {rb} for U={U}")
+    nruns = len(rb) - 1
+    if isinstance(windows, int):
+        windows = (windows,) * nruns
+    check_input(len(tuple(windows)) == nruns, "windows must match run count")
+    return NeighborReduce.apply(x, nbr_idx.to(torch.int32), mask, reduce == "mean")
 
 
 def padded_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = 1) -> torch.Tensor:

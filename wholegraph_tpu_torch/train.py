@@ -2,8 +2,9 @@
 
 :func:`train_step` is ``bench.py``'s ``bench_train_step`` body
 (``bench.py:660-679``) and ``examples/node_classification.py``'s
-``_train_body`` without cache or dropout: uniform ``multilayer_sample``
-(kernel C per hop, ``append_unique``), the embedding gather of the unique
+``_train_body`` without cache or dropout: ``multilayer_sample`` (kernel C
+per hop, or kernel K per hop with ``sample_method="weighted"``;
+``append_unique``), the embedding gather of the unique
 ids (kernel A), the 2-layer SAGE forward (kernel D per layer) and backward,
 dense Adam, and the sparse LazyAdam apply on the touched rows (kernel A
 reads, kernel B writes).
@@ -27,6 +28,7 @@ from .embedding import Embedding, HostEmbedding, LazyAdam, hot_ids_by_degree
 from .graph import GraphStructure
 from .models import HomoGNN, cross_entropy_loss
 from .utils.device import DeviceLike, resolve_device
+from .utils.error import check_input
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +37,9 @@ class SageTrainConfig:
     2M nodes with degrees uniform in ``[deg//2, deg + deg//2]`` (8..24),
     dim 256, a 2-layer SAGE of width 256 over 16 classes, batch 1024,
     fanouts (10, 15), an f32 table trained by LazyAdam, dense Adam; ``lr``
-    is both optimizers' rate."""
+    is both optimizers' rate. ``sample_method`` is the example's
+    ``--sample-method``: ``"unweighted"`` or ``"weighted"`` (A-Res over
+    edge weights, ``config.py:66``)."""
 
     n_nodes: int = 2_000_000
     deg: int = 16
@@ -46,6 +50,7 @@ class SageTrainConfig:
     fanouts: Tuple[int, ...] = (10, 15)
     dtype: str = "float32"
     lr: float = 1e-3
+    sample_method: str = "unweighted"
 
 
 @dataclasses.dataclass
@@ -71,7 +76,14 @@ def build_synthetic(config: SageTrainConfig = SageTrainConfig(), device: DeviceL
     ``host_cache_ratio`` None keeps the embedding in device memory. A ratio
     puts it in the host tier (:class:`HostEmbedding`, ``cache_ratio`` of it)
     with the ``hot_ids_by_degree(row_ptr, ratio)`` rows cached; the draws,
-    and so the table, graph, labels and weights, are the same either way."""
+    and so the table, graph, labels and weights, are the same either way.
+
+    With ``sample_method="weighted"`` the graph also gets edge weights
+    ``U[0, 1) + 0.1`` (``bench_sampling``'s, ``bench.py:345-348``), drawn
+    from the same generator after everything else, and its pair table
+    (``with_weighted_fastpath``), built once here."""
+    check_input(config.sample_method in ("unweighted", "weighted"),
+                f"sample_method {config.sample_method!r} is 'unweighted' or 'weighted'")
     dev = resolve_device(device)
     n, deg = config.n_nodes, config.deg
     degs = np.random.RandomState(seed + 1).randint(deg // 2, deg + deg // 2 + 1, n)
@@ -94,6 +106,10 @@ def build_synthetic(config: SageTrainConfig = SageTrainConfig(), device: DeviceL
     model.reset_parameters(gen)
     labels = torch.randint(0, config.num_classes, (n,), generator=gen, device=dev,
                            dtype=torch.int32)
+    if config.sample_method == "weighted":
+        weight = torch.rand(col.shape, generator=gen, device=dev) + 0.1
+        graph = GraphStructure(graph.row_ptr, graph.col, n, max_degree=graph.max_degree,
+                               edge_weight=weight).with_weighted_fastpath()
     return SageTrainState(config, graph, embedding, model,
                           torch.optim.Adam(model.parameters(), lr=config.lr), labels)
 
@@ -111,7 +127,8 @@ def train_step(state: SageTrainState, centers: torch.Tensor, labels: torch.Tenso
     event there)."""
     mark = mark or (lambda stage: None)
     cfg = state.config
-    ml = state.graph.multilayer_sample(centers, cfg.fanouts, seed=seed)
+    ml = state.graph.multilayer_sample(centers, cfg.fanouts, seed=seed,
+                                       weighted=cfg.sample_method == "weighted")
     mark("sample")
     ids = ml.unique_gids
     # the sampler's ids are unique, in ascending runs: the host tier reads
