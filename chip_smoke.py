@@ -48,9 +48,14 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    routes bit-equal, one K launch a ``csr_sample_neighbors`` call by its
    count and no other kernel by the profiler; timed by CUDA events and as
    device time, beside the separate route, the plain version, the bound
-   and ``torch.topk`` of the ready key matrix (a reference); then degrees
-   0, K, K + 1, 256, 257 and a hub of 2^17, weights 0, -1, NaN and inf and
-   out-of-range centres at K = 1, 15 and 200;
+   and ``torch.topk`` of the ready key matrix (a reference), and split by
+   the probes of ``tools/kernel_variants.py`` (each takes one step out of
+   K's register path: centre rows only, keys only, no sort, the sort over
+   plain weights, no neighbour shuffle) with each build's registers,
+   built from this checkout and timed in turns beside K; then degrees 0,
+   K, K + 1, 32, 33, 64, 65, 128, 129, 256, 257 and a hub of 2^17,
+   weights 0, -1, NaN and inf and out-of-range centres at K = 1, 15 and
+   200;
 8. ``[weighted_train]``: the device-memory step at
    ``SageTrainConfig(sample_method="weighted")`` (the graph of step 3 plus
    its weights and pair table): one captured step whose two K calls are
@@ -150,6 +155,7 @@ import inspect
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -177,6 +183,7 @@ from wholegraph_tpu_torch.ops import host_kernels as H  # noqa: E402
 from wholegraph_tpu_torch.ops import rng  # noqa: E402
 from wholegraph_tpu_torch.ops import sampling as sampling_mod  # noqa: E402
 from wholegraph_tpu_torch.ops import spmm_kernels as S  # noqa: E402
+from wholegraph_tpu_torch.tools import kernel_variants  # noqa: E402
 from wholegraph_tpu_torch.train import STAGES  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -2004,9 +2011,9 @@ def store_phase():
 # the weighted sampler (kernel K) and the windowed sampled aggregation (D)
 # ---------------------------------------------------------------------------
 
-WEIGHTED_ROWS = 2_000_000    # bench_sampling's rows (degrees 16..48, mean 32)
-WEIGHTED_BATCH = 1 << 16     # its batch
-WEIGHTED_K = 15              # its fanout
+WEIGHTED_ROWS = kernel_variants.BENCH_ROWS    # bench_sampling's rows (degrees 16..48)
+WEIGHTED_BATCH = kernel_variants.BENCH_BATCH  # its batch
+WEIGHTED_K = kernel_variants.BENCH_K          # its fanout
 WEIGHTED_STEPS = 30          # timed full-width weighted steps (p90 has 3 beyond it)
 KW = sampling_mod.SAMPLE_HOP_WEIGHTED
 
@@ -2049,14 +2056,16 @@ def check_weighted(case, row_ptr, col, w, pairs, centers, K, seed, hop, max_degr
 
 def weighted_cases(gen):
     """Graphs and centres beyond the bench's: rows of degree 0, K, K + 1,
-    256 and 257 (either side of K's stage) and a hub of 2^17 edges; weights
-    with zeros, negatives, NaNs and infinities among them; every centre id
-    outside [0, n) of either sign."""
+    32, 33, 64, 65, 128 and 129 (the edges of K's register tiers: one
+    value a lane, two, the tier of 8, its sort widths), 256 and 257 (the
+    registers' edge and the list mode's) and a hub of 2^17 edges; weights with zeros, negatives, NaNs and infinities among
+    them; every centre id outside [0, n) of either sign."""
     out = []
     for K in (1, 15, 200):
         n = 20_000
         degs = torch.randint(0, 2 * K + 4, (n,), generator=gen, device="cuda")
-        degs[:7] = torch.tensor([0, 0, K, K + 1, 256, 257, 1 << 17], device="cuda")
+        degs[:13] = torch.tensor([0, 0, K, K + 1, 256, 257, 1 << 17, 32, 33, 64, 65, 128, 129],
+                                 device="cuda")
         row_ptr = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
                              torch.cumsum(degs, 0)]).to(torch.int32)
         E = int(row_ptr[-1])
@@ -2070,8 +2079,8 @@ def weighted_cases(gen):
         centers = torch.cat([torch.arange(n, device="cuda"),
                              torch.tensor([6, 6, 3, 4, 0, -1, -7, n, n + 9, -(2**31), 2**31 - 1],
                                           device="cuda")]).to(torch.int32)
-        out.append((f"K={K} degrees 0, K, K+1, 256, 257, hub 2^17, weights 0/-1/NaN/inf, "
-                    f"out-of-range centres", (row_ptr, col, w, centers, K)))
+        out.append((f"K={K} degrees 0, K, K+1, 32, 33, 64, 65, 128, 129, 256, 257, hub 2^17, "
+                    f"weights 0/-1/NaN/inf, out-of-range centres", (row_ptr, col, w, centers, K)))
     return out
 
 
@@ -2110,6 +2119,39 @@ def weighted_hop_times(case, row_ptr, col, w, pairs, centers, K, seed, hop, iter
     return t
 
 
+def weighted_split(case, row_ptr, pairs, centers, K, seed, hop):
+    """Where K's time goes at one hop: the probes of
+    ``tools/kernel_variants.k_register_variants``, each the current source
+    with one step of the register path taken out (output not kept), built
+    from this checkout and timed in turns beside K, by CUDA events (median
+    of three) and as device time from a CUDA graph. A probe whose
+    substitution no longer matches the source is named and left out, as
+    the tool leaves it out."""
+    with open(os.path.join(kernels.CSRC, KW.source)) as f:
+        variants, stale = kernel_variants.k_register_variants(f.read())
+    probes = {k: v for k, v in variants.items() if k.startswith("probe")}
+    if stale:
+        log(f"[weighted] K's probes that no longer match its source, left out: {stale}")
+    libs, logs = kernel_variants.build(probes) if probes else ({}, {})
+
+    def call(lib=None):
+        def run():
+            with kernel_variants.launching(KW, lib) if lib else contextlib.nullcontext():
+                return sampling_mod.sample_hop_weighted(row_ptr, None, None, centers, K, seed,
+                                                        hop, pairs=pairs)
+        return run
+
+    t = kernel_variants.in_turns({"K": call(), **{k: call(libs[k]) for k in probes}})
+    with open(os.path.splitext(kernels.library_path(os.path.join(kernels.CSRC, KW.source)))[0]
+              + ".log") as f:
+        regs = {"K": kernel_variants.ptxas(f.read(), "hop_weighted"),
+                **{k: kernel_variants.ptxas(logs[k], "hop_weighted") for k in probes}}
+    log(f"[weighted] split of K at {case} (device ms, CUDA graph; CUDA events in the JSON): "
+        + ", ".join(f"{k}: {v['device_ms']}" for k, v in t.items()))
+    log(f"[weighted] K's build: {json.dumps(regs['K'])}")
+    return {"case": case, "times": t, "ptxas": regs, "stale": stale}
+
+
 def weighted_phase():
     """``[weighted]``: kernel K at ``bench_sampling(weighted=True)``'s shape
     (``bench.py:311-375``): 2,000,000 rows of degrees
@@ -2119,16 +2161,11 @@ def weighted_phase():
     equality rule, one K launch a call by its count and no other kernel by
     the profiler, timed; then the edge cases at K = 1, 15 and 200."""
     t0 = time.perf_counter()
-    degs = np.random.RandomState(1).randint(16, 49, WEIGHTED_ROWS)
-    row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)).cuda()
-    E = int(row_ptr[-1])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
-    col = torch.randint(0, WEIGHTED_ROWS, (E,), generator=gen, device="cuda", dtype=torch.int32)
-    w = torch.rand(E, generator=gen, device="cuda") + 0.1
+    row_ptr, col, w, centers = kernel_variants.weighted_bench_graph(gen)
+    E = int(row_ptr[-1])
     pairs = wt.ops.interleave_col_weights(col, w)
-    centers = torch.randint(0, WEIGHTED_ROWS, (WEIGHTED_BATCH,), generator=gen, device="cuda",
-                            dtype=torch.int32)
     torch.cuda.synchronize()
     log(f"[weighted] bench graph: {WEIGHTED_ROWS} rows, {E} edges, pair table "
         f"{pairs.nbytes} bytes, built in {time.perf_counter() - t0:.2f} s")
@@ -2146,6 +2183,7 @@ def weighted_phase():
             f"csr_sample_neighbors (weighted) launched other kernels: {n_kern} a call, {names}")
     errs[0]["kernels_per_call"] = n_kern
     bench = weighted_hop_times(f"bench [{WEIGHTED_BATCH}, {WEIGHTED_K}]", *args)
+    bench["split"] = weighted_split(bench["case"], row_ptr, pairs, centers, WEIGHTED_K, 0, 0)
     del row_ptr, col, w, pairs, args
     torch.cuda.empty_cache()
     for case, (rp, cl, wc, ce, K) in weighted_cases(gen):

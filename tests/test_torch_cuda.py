@@ -989,13 +989,16 @@ def test_store_on_card_matches_cpu(dev):
 
 
 def _weighted_graph(K, seed):
-    """Rows of degree 0, 1, K, K + 1, 256 and 257 (the stage's edge, on
-    either side) and a hub of 2^17 edges, then random rows; weights
-    positive with 0, negative, NaN and +inf mixed in; out-of-range centres."""
+    """Rows of degree 0, 1, K, K + 1, 256 and 257 (the registers' edge and
+    the list mode's, on either side), a hub of 2^17 edges, and 31, 32, 33,
+    63, 64, 65, 127, 128 and 129 (the register tiers' edges: one value a
+    lane, two, the tier of 8, and its sort widths), then random rows;
+    weights positive with 0, negative, NaN and +inf mixed in; out-of-range
+    centres."""
     rs = np.random.RandomState(seed)
     n = 3000
     degs = rs.randint(0, 2 * K + 40, n)
-    degs[:7] = [0, 1, K, K + 1, 256, 257, 1 << 17]
+    degs[:16] = [0, 1, K, K + 1, 256, 257, 1 << 17, 31, 32, 33, 63, 64, 65, 127, 128, 129]
     row_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(degs)]).astype(np.int32))
     E = int(row_ptr[-1])
     col = torch.from_numpy(rs.randint(0, n, E).astype(np.int32))
@@ -1025,12 +1028,13 @@ def _weighted_check(got, row_ptr, col, w, centers, K, seed, hop, pairs=None):
     return n_near, n_differ
 
 
-@pytest.mark.parametrize("K", [0, 1, 15, 200])
+@pytest.mark.parametrize("K", [0, 1, 15, 40, 200])
 @pytest.mark.parametrize("route", ["pairs", "separate"])
 def test_sample_hop_weighted_matches_plain(dev, K, route):
     """Kernel K, all five fields, against its plain version on the card by
-    the equality rule: both selection modes (the stage to 256 edges, the
-    running list above), degrees 0, 1, K, K + 1 and a hub, -inf keys inside
+    the equality rule: its three selection modes (registers, 2 a lane to 64
+    edges and 8 a lane to 256, the running list above), degrees 0, 1, K, K +
+    1, either side of 32, 64, 128 and 256, and a hub, -inf keys inside
     rows, out-of-range centres; one launch a call, deterministic, and the
     two routes bit-equal."""
     row_ptr, col, w, centers = (t.to(dev) for t in _weighted_graph(K, K + 3))
@@ -1054,14 +1058,14 @@ def test_sample_hop_weighted_matches_plain(dev, K, route):
 
 
 def test_sample_hop_weighted_list_in_device_memory(dev):
-    """K = 700: eight warps' lists exceed the shared memory beside the
-    stages, so each hub's list lives in its own rows of pos and edge_ids
+    """K = 800: eight warps' lists exceed the block's 48 KB of shared
+    memory, so each hub's list lives in its own rows of pos and edge_ids
     until the last pass rewrites them."""
-    K = 700
-    row_ptr = torch.tensor([0, 40_000, 40_300, 41_000, 43_000], dtype=torch.int32)
+    K = 800
+    row_ptr = torch.tensor([0, 40_000, 40_300, 41_200, 43_200], dtype=torch.int32)
     rs = np.random.RandomState(2)
-    w = torch.from_numpy((rs.rand(43_000) + 0.1).astype(np.float32))
-    col = torch.arange(43_000, dtype=torch.int32).flip(0).contiguous()
+    w = torch.from_numpy((rs.rand(43_200) + 0.1).astype(np.float32))
+    col = torch.arange(43_200, dtype=torch.int32).flip(0).contiguous()
     centers = torch.tensor([0, 1, 2, 3, 0, 9], dtype=torch.int32)
     args = (t.to(dev) for t in (row_ptr, col, w, centers))
     row_ptr_d, col_d, w_d, centers_d = args

@@ -305,18 +305,128 @@ def _fields_t(res):
 
 
 STAGE = 8  # the model's stage: small, so a few dozen edges take the list mode
+def _order_values(k):
+    """The register path's 64-bit values ``(bits(key) & 0x7fffffff) << 32 |
+    position`` of a row's keys, as Python ints."""
+    bits = np.asarray(k, np.float32).view(np.uint32) & np.uint32(0x7FFFFFFF)
+    return [(int(b) << 32) | e for e, b in enumerate(bits)]
 
 
-def _kernel_model(keys, deg, K, stage=STAGE):
-    """Kernel K's selection per centre, in Python: a rank count over the
-    staged keys up to ``stage`` edges, else the running top-K list filled
-    by chunks of 32 in position order. Returns (pos, valid) [B, K]."""
+def _lane_step(v, partner, lower):
+    """One step of the kernel's network inside a register (``lane_step``):
+    every lane takes its partner's value where the pair's lower lane keeps
+    the smaller."""
+    for r in range(len(v)):
+        p = v[r][partner]
+        v[r] = np.where((p < v[r]) == lower, p, v[r])
+
+
+def _reg_step(v, rows, m):
+    """``reg_step``: registers r and r ^ m of one lane, the lower register
+    keeping the smaller value."""
+    for r in range(rows):
+        if r & m == 0:
+            a, b = v[r].copy(), v[r | m].copy()
+            v[r], v[r | m] = np.minimum(a, b), np.maximum(a, b)
+
+
+def _mirror_step(v, rows, m, lanes):
+    """``mirror_step``: a merge's first step across registers, element i =
+    lane + lanes * r paired with its mirror, lane ^ (lanes - 1) of register
+    r ^ m."""
+    mirror = np.arange(lanes) ^ (lanes - 1)
+    p = [v[r ^ m][mirror] for r in range(rows)]
+    for r in range(rows):
+        v[r] = np.where((p[r] < v[r]) == (r < (r ^ m)), p[r], v[r])
+
+
+def _row_values(k, d, lanes, regs):
+    """[regs, lanes]: element i = lane + lanes * r holds the 64-bit value of
+    position i, 2^64 - 1 past the row."""
+    v = np.full(lanes * regs, (1 << 64) - 1, np.uint64)
+    v[:d] = _order_values(k)
+    return v.reshape(regs, lanes)
+
+
+def _warp_select_model(k, d, lanes, regs):
+    """``warp_select`` of csrc/sample_weighted.cu for one row of ``d <= lanes
+    * regs`` keys: each register of the row sorted ascending by itself, then
+    merged one at a time into register 0 (the minimum with its mirror lane
+    ^ (lanes - 1), then the half-cleaners). Returns register 0: the row's
+    ``lanes`` smallest values in order."""
+    v = _row_values(k, d, lanes, regs)
+    rows = -(-d // lanes)
+    lane = np.arange(lanes)
+    k2 = 2
+    while k2 <= lanes:
+        _lane_step(v[:rows], lane ^ (k2 - 1), (lane & (k2 >> 1)) == 0)
+        j = k2 >> 2
+        while j > 0:
+            _lane_step(v[:rows], lane ^ j, (lane & j) == 0)
+            j >>= 1
+        k2 <<= 1
+    for r in range(1, rows):
+        v[0] = np.minimum(v[0], v[r][lane ^ (lanes - 1)])
+        j = lanes >> 1
+        while j > 0:
+            _lane_step(v[:1], lane ^ j, (lane & j) == 0)
+            j >>= 1
+    return v[0]
+
+
+def _register_model(k, d, lanes, regs):
+    """The register path of kernel K for one row of ``d <= lanes * regs``
+    keys, as ``bitonic`` in csrc/sample_weighted.cu runs it for a warp of
+    ``lanes`` lanes holding ``regs`` values each (the kernel: 32 and R):
+    element i = lane + lanes * r holds the 64-bit value of position i (past
+    the row 2^64 - 1); over the row's power-of-two width W every block is
+    sorted ascending, a merge's first step pairing i with i ^ (k - 1): lane
+    ^ (k - 1), or above ``lanes`` the mirror lane of register r ^ (k / lanes
+    - 1); the half-cleaners pair lanes, or above ``lanes`` registers of one
+    lane. Returns the values in order."""
+    v = _row_values(k, d, lanes, regs)
+    W = 1 << (0 if d <= 1 else (d - 1).bit_length())
+    rows = W // lanes if W > lanes else 1
+    lane = np.arange(lanes)
+    k2 = 2
+    while k2 <= W:
+        if k2 <= lanes:
+            _lane_step(v[:rows], lane ^ (k2 - 1), (lane & (k2 >> 1)) == 0)
+        else:
+            _mirror_step(v, rows, k2 // lanes - 1, lanes)
+        j = k2 >> 2
+        while j > 0:
+            if j >= lanes:
+                _reg_step(v, rows, j // lanes)
+            else:
+                _lane_step(v[:rows], lane ^ j, (lane & j) == 0)
+            j >>= 1
+        k2 <<= 1
+    return v.reshape(-1)
+
+
+def _kernel_model(keys, deg, K, stage=STAGE, lanes=32, tiers=()):
+    """Kernel K's selection per centre, in Python: a row of d edges sorted
+    in registers (:func:`_register_model`) by the first of ``tiers``
+    (registers a lane; the kernel: R_SMALL and R_LARGE) with ``d <= lanes *
+    regs``, in the last tier by WarpSelect's merge (:func:`_warp_select_model`)
+    where it takes at most ``lanes`` slots; else a rank count over the staged keys up to ``stage`` edges
+    (PR 8's design: no tiers, the stage to 256); else the running top-K
+    list filled by chunks of 32 in position order. Returns (pos, valid)
+    [B, K]."""
     B = len(deg)
     pos = np.zeros((B, K), np.int64)
     valid = np.zeros((B, K), bool)
     for b in range(B):
         d = max(int(deg[b]), 0)
         k = keys[b][:d]
+        regs = next((r for r in tiers if d <= lanes * r), 0)
+        if regs:
+            merge = regs == tiers[-1] and min(d, K) <= lanes
+            v = (_warp_select_model if merge else _register_model)(k, d, lanes, regs)
+            for j in range(min(d, K)):
+                pos[b, j], valid[b, j] = v[j] & 0xFFFFFFFF, (v[j] >> 32) != 0x7F800000
+            continue
         if d <= stage:
             for e in range(d):
                 rank = sum(1 for f in range(d) if k[f] > k[e] or (k[f] == k[e] and f < e))
@@ -340,26 +450,106 @@ def _kernel_model(keys, deg, K, stage=STAGE):
     return np.where(valid, pos, 0), valid
 
 
-@pytest.mark.parametrize("K", [1, 3, 15, 40])
-def test_kernel_model_matches_plain(K):
-    """The selection that kernel K runs, in both of its modes, gives the
+# weights that key every way: +inf (-0.0, exact ties), 0, negative and NaN
+# (-inf), denormal (-inf for most u, finite for u near 1), huge and tiny
+SPECIAL_WEIGHTS = np.array([np.inf, 0.0, -1.0, np.nan, 1e-39, 3e38, 1e-30, 1.0], np.float32)
+# the model's register paths: (lanes, tiers); a warp of 32 lanes holding 2
+# or 8 values a lane as the kernel has it (registers to 64 and to 256 edges,
+# the list above), and warps of 4 lanes: 2 or 8 (8 and 32 edges), 1 or 4 (4
+# and 16), 4 or 8 (16 and 32)
+REGISTER_MODELS = {"lanes32": (32, (2, 8)), "lanes4": (4, (2, 8)), "lanes4-r1-4": (4, (1, 4)),
+                   "lanes4-r4-8": (4, (4, 8))}
+REGISTER_DEGREES = [0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 80, 81, 97,
+                    127, 128, 129, 130, 255, 256, 257, 300]
+
+
+def _close_keys(w, row_ptr, rows, seed, hop, rs):
+    """Weights for ``rows`` whose keys all lie within a few ulps of one
+    value, in random order of position: exact ties and neighbours that
+    differ in the last bits of the 64-bit order values."""
+    for c in rows:
+        lo, hi = row_ptr[c], row_ptr[c + 1]
+        u = SM.rng.rand_uniform(seed, c, hop * SM.HOP_STRIDE + torch.arange(hi - lo))
+        target = -3.0 * (1.0 + 1e-7 * rs.randint(0, 4, hi - lo))
+        w[lo:hi] = (torch.log(u.clamp(min=1e-20)) / torch.from_numpy(target).float()).numpy()
+
+
+@pytest.mark.parametrize(
+    "K,model", [(1, None), (3, None), (15, None), (40, None)]
+    + [(K, m) for m in REGISTER_MODELS for K in (1, 3, 15, 40, 64)],
+    ids=["1", "3", "15", "40"] + [f"{m}-{K}" for m in REGISTER_MODELS for K in (1, 3, 15, 40, 64)])
+def test_kernel_model_matches_plain(K, model):
+    """The selection that kernel K runs, in each of its modes, gives the
     plain version's positions and mask, with exact ties (+inf weights) and
-    -inf keys in the rows."""
+    -inf keys in the rows. ``model`` None: the stage and the list mode
+    (PR 8's design, the cases from before the register path); else the
+    register tiers of REGISTER_MODELS and the list mode, at degrees either
+    side of each mode's edge and of each sort width, with every weight of
+    SPECIAL_WEIGHTS mixed in and rows of keys a few
+    ulps apart."""
     rs = np.random.RandomState(K)
-    deg = rs.randint(0, 120, 60)
-    deg[:4] = [0, STAGE, STAGE + 1, 97]
+    if model is None:
+        deg = rs.randint(0, 120, 60)
+        deg[:4] = [0, STAGE, STAGE + 1, 97]
+    else:
+        deg = np.concatenate([REGISTER_DEGREES, rs.randint(0, 140, 40)])
+    n = len(deg)
     row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
     E = int(row_ptr[-1])
     w = (rs.rand(E) + 0.1).astype(np.float32)
     w[rs.rand(E) < 0.1] = np.inf
     w[rs.rand(E) < 0.1] = 0.0
-    centers = np.arange(60, dtype=np.int32)
+    if model is not None:
+        pick = rs.rand(E) < 0.2
+        w[pick] = SPECIAL_WEIGHTS[rs.randint(0, len(SPECIAL_WEIGHTS), int(pick.sum()))]
+        _close_keys(w, row_ptr, [i for i, x in enumerate(REGISTER_DEGREES) if x >= 7], 5, 2, rs)
+    centers = np.arange(n, dtype=np.int32)
     start, d = SM._centre_rows(_t(row_ptr), _t(centers))
     keys = SM._weighted_keys(start, d, _t(w), 5, _t(centers), 2, int(deg.max())).numpy()
-    pos, valid = _kernel_model(keys, deg, K)
+    if model is None:
+        pos, valid = _kernel_model(keys, deg, K)
+    else:
+        lanes, tiers = REGISTER_MODELS[model]
+        pos, valid = _kernel_model(keys, deg, K, 0, lanes, tiers)
     res = _sample(row_ptr, np.zeros(E, np.int32), w, centers, K, 5, 2)
     np.testing.assert_array_equal(valid, res.mask.numpy())
     np.testing.assert_array_equal(pos, res.positions.numpy())
+
+
+def test_register_order_is_the_plain_order():
+    """The register path's invariant: every key of ``_weighted_keys``, -inf
+    past a row included, has its sign bit set (so it lies in [-inf, -0.0]),
+    over SPECIAL_WEIGHTS and random ones and with u = 0 among the draws; so
+    the ascending order of ``(bits(key) & 0x7fffffff) << 32 | position`` is
+    the plain version's stable sort by key descending."""
+    seed, c, hop = 9782848, 3, 1  # rand_u32(seed, 3, 2^20 + 1) >> 8 == 0: u = 0 at offset 1
+    assert int(SM.rng.rand_u32(seed, c, hop * SM.HOP_STRIDE + 1)) >> 8 == 0
+    rs = np.random.RandomState(12)
+    deg = np.array([0, 5, 40, 3 * len(SPECIAL_WEIGHTS), 64, 1, 70, 33])
+    row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    E = int(row_ptr[-1])
+    w = (rs.rand(E) + 0.1).astype(np.float32)
+    pick = rs.rand(E) < 0.3
+    w[pick] = SPECIAL_WEIGHTS[rs.randint(0, len(SPECIAL_WEIGHTS), int(pick.sum()))]
+    lo3 = row_ptr[3]  # centre 3: each special weight three times
+    w[lo3:lo3 + 3 * len(SPECIAL_WEIGHTS)] = np.repeat(SPECIAL_WEIGHTS, 3)
+    centers = np.arange(len(deg), dtype=np.int32)
+    start, d = SM._centre_rows(_t(row_ptr), _t(centers))
+    width = int(deg.max())
+    keys = SM._weighted_keys(start, d, _t(w), seed, _t(centers), hop, width)
+    assert bool(torch.signbit(keys).all()), "a key without its sign bit"
+    for x in SPECIAL_WEIGHTS:  # u = 0 (centre 3's offset 1) under every weight
+        w1 = w.copy()
+        w1[lo3 + 1] = x
+        k3 = SM._weighted_keys(start[3:4], d[3:4], _t(w1), seed, _t(centers[3:4]), hop, width)
+        assert bool(torch.signbit(k3).all()), f"u = 0, w = {x}: {float(k3[0, 1])}"
+        if x == 1.0:  # u = 0 keys log(1e-20) / w, finite
+            assert float(k3[0, 1]) == float(torch.log(torch.tensor(1e-20)))
+    _, order = torch.sort(keys, dim=1, descending=True, stable=True)
+    for b in range(len(deg)):
+        vals = _order_values(keys[b].numpy())
+        by_value = sorted(range(width), key=lambda e: vals[e])
+        assert by_value == order[b].tolist(), f"centre {b}"
 
 
 def test_weighted_errors_and_routes():

@@ -1,9 +1,11 @@
-"""Design alternatives of kernels G and J, timed against the kernels as
-built: ``python3 -m wholegraph_tpu_torch.tools.kernel_variants [--out FILE]``.
+"""Design alternatives of kernels G, J and K, timed against the kernels as
+built: ``python3 -m wholegraph_tpu_torch.tools.kernel_variants [--out FILE]
+[--parts G J K] [--k-parent FILE]``.
 
-Each variant is the current source of ``csrc/csr_spmm.cu`` (G) or
+Each variant is the current source of ``csrc/csr_spmm.cu`` (G),
 ``csrc/row_gather.cu`` (J, with ``direct_gather.cuh`` inlined where the
-variant changes it) with one stated change, applied by text substitution
+variant changes it) or ``csrc/sample_weighted.cu`` (K) with one stated
+change, applied by text substitution
 that must match: a variant whose text no longer matches the source is
 reported as such and not built, so the tool never holds the kernels to its
 own copy of them. The variants are built with the port's ``nvcc`` flags into
@@ -30,6 +32,24 @@ probe's, and its output is not kept.
   variants: streaming stores (``st.global.cs``), loads through the
   read-only path (``ld.global.nc``), persistent CTAs that prefetch the next
   tile's ids; beside kernel A and ``index_select``.
+* K at the hop of ``bench_sampling(weighted=True)`` (2,000,000 rows of
+  degrees 16..48, 65,536 centres, K = 15), at the same hop over rows of
+  64..256 edges, and at the two hops of a step of
+  ``SageTrainConfig(sample_method="weighted")`` (1,024 centres at K = 10,
+  then 11,264 at K = 15), on the pair table: its register path's
+  alternatives (one tier of 8 edges a lane for every row to 256; tiers of
+  2, 4 and 8; no register cap; 8 CTAs an SM at 32 registers; 2 warps a
+  block; a network that sets each step's direction per element; the full
+  sort in the tier of 8 in place of WarpSelect's merge, and that merge in
+  both tiers; a sort of 32-bit key prefixes with an exact check) and probes
+  (centre rows only; keys only, nothing written; no sort; the sort over
+  plain weights; no neighbour shuffle), each kernel's registers beside
+  them. ``--k-parent`` builds another tree's ``sample_weighted.cu`` beside K
+  (a ``git archive`` of the parent commit: the design before the register
+  path, a rank count in shared memory up to 256 edges) with that design's
+  probes (centre rows only; no rank count; the count over plain weights; no
+  second read of the neighbour; keys only). ``--parts`` limits the run to
+  some of G, J and K.
 
 Every function is timed in turns, three rounds, by CUDA events (the median)
 and once as device time from a CUDA graph of 20 calls. Prints one JSON
@@ -48,12 +68,17 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from .. import kernels
 from ..full_graph import clustered_csr
+from ..graph import GraphStructure
 from ..ops import gather_kernels as G
+from ..ops import sampling as SM
 from ..ops import spmm_kernels as S
+from ..ops.sampling import interleave_col_weights
+from ..train import SageTrainConfig
 
 VARIANT_DIR = os.path.join(kernels.BUILD_DIR, "variants")
 
@@ -249,6 +274,154 @@ def j_variants(src: str, header: str) -> tuple:
     })
 
 
+_K_RANK = """      int32_t rank = 0;
+      for (int f = 0; f < d; ++f) {
+        const float kf = stage[f];
+        rank += (kf > k || (kf == k && f < e)) ? 1 : 0;
+      }
+"""
+_K_STAGE_FILL = "      stage[e] = edge_key(hc, key0, e, weight_at(g, int64_t(row.lo) + e));\n"
+_K_STAGE_RANKS = """    __syncwarp();
+    for (int e = lane; e < d; e += 32) {
+      const float k = stage[e];
+"""
+
+
+def k_stage_probes(src: str) -> tuple:
+    """Probes of kernel K's stage design (the rank count in shared memory
+    for every row up to 256 edges, the design before the register path),
+    each taking one step out."""
+    return _each({
+        "probe: K centre rows only": lambda: _sub(src, "  if (K == 0) return;\n",
+                                                  "  if (K >= 0) return;\n"),
+        "probe: K no rank count (slot e for e < K)": lambda: _sub(
+            src, _K_RANK, "      const int32_t rank = e;\n"),
+        "probe: K rank count over plain weights": lambda: _sub(
+            src, _K_STAGE_FILL, "      stage[e] = weight_at(g, int64_t(row.lo) + e);\n"),
+        "probe: K no col re-read (neighbour -1)": lambda: _sub(
+            src, "o.nbrs[r0 + j] = valid ? col_at(g, int64_t(lo) + pp) : -1;",
+            "o.nbrs[r0 + j] = -1;"),
+        # a store that never happens (every key is <= -0.0) keeps the keys live
+        "probe: K keys only (stage filled, nothing written)": lambda: _sub(
+            src, _K_STAGE_RANKS, "    __syncwarp();\n    if (lane < d && stage[lane] > 0.f) "
+            "o.mask[r0] = 1;\n    return;\n" + _K_STAGE_RANKS[len("    __syncwarp();\n"):]),
+    })
+
+
+_K_FULL_SORT = "    sort_width<log2_of(32 * R)>(v, lane, d <= 1 ? 0 : 32 - __clz(d - 1));\n"
+_K_MERGE = "  if (R == R_LARGE && take <= 32)\n"
+_K_SORT = _K_MERGE + "    warp_select(v, lane, (d + 31) / 32);\n  else\n" + _K_FULL_SORT
+_K_KEY = "__float_as_uint(edge_key(hc, key0, e, w))"
+_K_NBR = "    const int32_t nbr = from_position(nb, p, d);\n"
+_K_WARPS = "constexpr int WARPS = 8;"
+_K_MIN_BLOCKS = "constexpr int MIN_BLOCKS = 6;"
+_K_SMALL_TIER = "  if (d <= 32 * R_SMALL) {\n"
+_K_LARGE_TIER = "  if (d <= REG_EDGES) {\n"
+_K_BITONIC = ("template <int LOGW, int R, typename T>\n__device__ __forceinline__ void bitonic(",
+              "// bitonic<logw>, for the row's")
+# the textbook network: block k ascending where (i & k) == 0, each step's
+# direction set per element (the first design of the register path)
+_K_BITONIC_DIRECTED = """template <int LOGW, int R, typename T>
+__device__ __forceinline__ void bitonic(T (&v)[R], int lane) {
+  constexpr int W = 1 << LOGW;
+  constexpr int ROWS = W > 32 ? W / 32 : 1;
+#pragma unroll
+  for (int k = 2; k <= W; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1)
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const bool up = ((lane + 32 * r) & k) == 0;
+        if (j < 32) {
+          const T p = __shfl_xor_sync(FULL, v[r], j);
+          v[r] = (p < v[r]) == (((lane & j) == 0) == up) ? p : v[r];
+        } else if ((r & (j / 32)) == 0) {
+          const T a = v[r], b = v[r | (j / 32)];
+          v[r] = (a < b) == up ? a : b;
+          v[r | (j / 32)] = (a < b) == up ? b : a;
+        }
+      }
+}
+
+"""
+# 32-bit prefixes (key bits >> (LOG - 1)) << LOG | position (LOG = log2(32
+# R)) sorted first; their order is kept where no two neighbours in it have
+# their 64-bit values the other way round (an exact check), else the 64-bit
+# values are sorted
+_K_PREFIX_SORT = """  {
+    constexpr int LOG = log2_of(32 * R);
+    const int logw = d <= 1 ? 0 : 32 - __clz(d - 1);
+    uint32_t s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      s[r] = lane + 32 * r < d ? uint32_t(v[r] >> 32 >> (LOG - 1)) << LOG | uint32_t(v[r])
+                               : 0xffffffffu;
+    sort_width<LOG>(s, lane, logw);
+    uint64_t w64[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint64_t x = from_position(v, int32_t(s[r] & (32 * R - 1)), d);
+      w64[r] = lane + 32 * r < d ? x : ~uint64_t(0);
+    }
+    bool wrong = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      uint64_t next = __shfl_down_sync(FULL, w64[r], 1);
+      const uint64_t wrap = __shfl_sync(FULL, w64[r + 1 < R ? r + 1 : r], 0);
+      if (lane == 31) next = wrap;
+      wrong |= lane + 32 * r + 1 < d && w64[r] > next;
+    }
+    if (__any_sync(FULL, wrong)) {
+      sort_width<LOG>(v, lane, logw);
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[r] = w64[r];
+    }
+  }
+"""
+
+
+def _k_bitonic_directed(src: str) -> str:
+    a, b = src.index(_K_BITONIC[0]), src.index(_K_BITONIC[1])
+    return src[:a] + _K_BITONIC_DIRECTED + src[b:]
+
+
+def k_register_variants(src: str) -> tuple:
+    """Kernel K's register design (rows of up to 32 R_LARGE edges):
+    alternatives, held bit-equal to K, and probes that each take one step
+    out of it."""
+    return _each({
+        "K one tier: R = 8 for every row to 256 edges": lambda: _sub(
+            src, _K_SMALL_TIER, "  if (d <= 0) {\n"),
+        "K tiers R = 2, 4 and 8": lambda: _sub(
+            src, _K_LARGE_TIER, "  if (d <= 128) {\n    register_row<4>(g, o, row, d, K, r0, hc, "
+            "key0, lane);\n    return;\n  }\n" + _K_LARGE_TIER),
+        "K without the register cap": lambda: _sub(src, _K_MIN_BLOCKS,
+                                                   "constexpr int MIN_BLOCKS = 1;"),
+        "K at 8 CTAs an SM (32 registers)": lambda: _sub(src, _K_MIN_BLOCKS,
+                                                         "constexpr int MIN_BLOCKS = 8;"),
+        "K 2 warps a block (40 registers)": lambda: _sub(_sub(
+            src, _K_WARPS, "constexpr int WARPS = 2;"), _K_MIN_BLOCKS,
+            "constexpr int MIN_BLOCKS = 24;"),
+        "K direction per step": lambda: _k_bitonic_directed(src),
+        "K full sort in the tier of 8 (no WarpSelect merge)": lambda: _sub(
+            src, _K_MERGE, "  if (false)\n"),
+        "K WarpSelect merge in both tiers (K <= 32)": lambda: _sub(
+            src, _K_MERGE, "  if (take <= 32 && d > 32)\n"),
+        "K 32-bit prefix sort, exact check": lambda: _sub(src, _K_FULL_SORT, _K_PREFIX_SORT),
+        "probe: K centre rows only": lambda: _sub(src, "  if (K == 0) return;\n",
+                                                  "  if (K >= 0) return;\n"),
+        # a store that never happens (no value has these bits) keeps the keys live
+        "probe: K keys only (nothing written)": lambda: _sub(
+            src, _K_SORT, "  uint64_t fold = 0;\n  for (int r = 0; r < R; ++r) fold ^= v[r];\n"
+            "  if (fold == 0x7fc0000000000001ull) o.mask[r0] = 1;\n  return;\n"),
+        "probe: K no sort (slot j takes position j)": lambda: _sub(src, _K_SORT, ""),
+        "probe: K sort over plain weights": lambda: _sub(src, _K_KEY, "__float_as_uint(w)"),
+        "probe: K no neighbour shuffle (neighbour -1)": lambda: _sub(
+            src, _K_NBR, "    const int32_t nbr = -1;\n"),
+    })
+
+
 def ptxas(log: str, match: str) -> dict:
     """{kernel: what ``-Xptxas -v`` reported for it} for the entry functions
     whose mangled name holds ``match``: registers, barriers and static
@@ -339,81 +512,199 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32)
 
 
+K_FIELDS = ("neighbors", "mask", "positions", "edge_ids", "degree")
+
+
+BENCH_ROWS = 2_000_000   # bench_sampling's rows (degrees 16..48, mean 32)
+BENCH_BATCH = 1 << 16    # its batch
+BENCH_K = 15             # its fanout
+
+
+def weighted_bench_graph(gen, low=16, high=48) -> tuple:
+    """(row_ptr, col, w, centers) on the card: the graph and centres of
+    ``bench_sampling(weighted=True)`` (``bench.py:311-375``): BENCH_ROWS rows
+    of degrees ``RandomState(1).randint(low, high + 1)`` (16..48 there),
+    uniform columns, weights ``U[0, 1) + 0.1`` and BENCH_BATCH uniform
+    centres, drawn from ``gen``. ``chip_smoke.weighted_phase`` and
+    :func:`k_cases` both take the bench hop from here."""
+    degs = np.random.RandomState(1).randint(low, high + 1, BENCH_ROWS)
+    rp = torch.from_numpy(np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)).cuda()
+    E = int(rp[-1])
+    col = torch.randint(0, BENCH_ROWS, (E,), generator=gen, device="cuda", dtype=torch.int32)
+    w = torch.rand(E, generator=gen, device="cuda") + 0.1
+    centers = torch.randint(0, BENCH_ROWS, (BENCH_BATCH,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    return rp, col, w, centers
+
+
+def k_cases(gen) -> dict:
+    """{case: (row_ptr, pairs, centers, K, seed, hop)}, on the pair table:
+    the hop of ``bench_sampling(weighted=True)`` (:func:`weighted_bench_graph`,
+    K = 15); the same hop over rows of 64..256 edges (the regime between
+    R = 2's registers and the list mode: a user's hop over a denser graph);
+    and the two hops of a step at ``SageTrainConfig(sample_method=
+    "weighted")`` (2,000,000 rows of degrees 8..24; 1,024 centres at K = 10,
+    then the 11,264 of the sample's next level at K = 15)."""
+    out = {}
+    for name, (low, high) in (("bench", (16, 48)), ("rows of 64..256 edges", (64, 256))):
+        rp, col, w, centers = weighted_bench_graph(gen, low, high)
+        pairs = interleave_col_weights(col, w)
+        del col, w
+        out[f"{name} [{BENCH_BATCH}, {BENCH_K}]"] = (rp, pairs, centers, BENCH_K, 0, 0)
+    cfg = SageTrainConfig()
+    n, deg = cfg.n_nodes, cfg.deg
+    degs = np.random.RandomState(1).randint(deg // 2, deg + deg // 2 + 1, n)
+    rp = torch.from_numpy(np.concatenate([[0], np.cumsum(degs)]).astype(np.int32)).cuda()
+    E = int(rp[-1])
+    col = torch.randint(0, n, (E,), generator=gen, device="cuda", dtype=torch.int32)
+    w = torch.rand(E, generator=gen, device="cuda") + 0.1
+    g = GraphStructure(rp, col, n, max_degree=int(degs.max()), edge_weight=w
+                       ).with_weighted_fastpath()
+    c = torch.randint(0, n, (cfg.batch,), generator=gen, device="cuda", dtype=torch.int32)
+    ml = g.multilayer_sample(c, cfg.fanouts, seed=0, weighted=True)
+    for hop, K in enumerate(cfg.fanouts):
+        hc = torch.where(ml.level_masks[hop], ml.level_gids[hop], 0)
+        out[f"step hop{hop} [{hc.numel()}, {K}]"] = (rp, g.cw_blocks, hc, K, 0, hop)
+    return out
+
+
+def k_section(libs: dict, names: list, gen) -> dict:
+    """K as built and its variants in turns at each of :func:`k_cases`;
+    every variant but a probe must give K's five fields bit for bit."""
+    out = {}
+    for case, (rp, pairs, centers, K, seed, hop) in k_cases(gen).items():
+        def k_call(lib=None, a=(rp, pairs, centers, K, seed, hop)):
+            def call():
+                r, p, c, k, s, h = a
+                if lib is None:
+                    return SM.sample_hop_weighted(r, None, None, c, k, s, h, pairs=p)
+                with launching(SM.SAMPLE_HOP_WEIGHTED, lib):
+                    return SM.sample_hop_weighted(r, None, None, c, k, s, h, pairs=p)
+            return call
+
+        ref = k_call()()
+        fns = {"K": k_call(), **{name: k_call(libs[name]) for name in names}}
+        for name, fn in fns.items():
+            got = fn()
+            if not name.startswith("probe") and not all(
+                    torch.equal(getattr(got, f), getattr(ref, f)) for f in K_FIELDS):
+                raise SystemExit(f"kernel_variants: {name} differs from kernel K ({case})")
+        out[f"K {case}"] = in_turns(fns)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--parts", nargs="+", choices=("G", "J", "K"), default=("G", "J", "K"))
+    ap.add_argument("--k-parent", default=None,
+                    help="another tree's sample_weighted.cu, built and timed beside K, with "
+                         "the stage design's probes applied to it")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
     kernels.build_all()
     read = lambda name: open(os.path.join(kernels.CSRC, name)).read()  # noqa: E731
-    (gv, g_stale), (jv, j_stale) = g_variants(read("csr_spmm.cu")), j_variants(
-        read("row_gather.cu"), read("direct_gather.cuh"))
-    libs, logs = build({**gv, **jv})
+    variants, stale = {}, []
+    gv, jv, kv = {}, {}, {}
+    if "G" in args.parts:
+        gv, st = g_variants(read("csr_spmm.cu"))
+        stale += st
+    if "J" in args.parts:
+        jv, st = j_variants(read("row_gather.cu"), read("direct_gather.cuh"))
+        stale += st
+    if "K" in args.parts:
+        kv, stale_k = k_register_variants(read("sample_weighted.cu"))
+        stale += stale_k
+    if "K" in args.parts and args.k_parent:
+        with open(args.k_parent) as f:
+            parent = f.read()
+        pv, st = k_stage_probes(parent)
+        kv.update({"K parent": parent, **{f"{k} (parent)": v for k, v in pv.items()}})
+        stale += [f"{k} (parent)" for k in st]
+    variants = {**gv, **jv, **kv}
+    libs, logs = build(variants) if variants else ({}, {})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
-    with open(os.path.splitext(kernels.library_path(os.path.join(kernels.CSRC, "csr_spmm.cu")))[0]
-              + ".log") as f:
-        g_log = f.read()
-    out = {"device": smi, "stale": g_stale + j_stale,
-           "ptxas": {"G": ptxas(g_log, "csr_spmm"),
-                     **{name: ptxas(logs[name], "csr_spmm_window") for name in gv}}}
+
+    def built_log(source):
+        with open(os.path.splitext(kernels.library_path(os.path.join(kernels.CSRC, source)))[0]
+                  + ".log") as f:
+            return f.read()
+
+    out = {"device": smi, "parts": list(args.parts), "stale": stale, "ptxas": {}}
+    if gv:
+        out["ptxas"].update({"G": ptxas(built_log("csr_spmm.cu"), "csr_spmm"),
+                             **{name: ptxas(logs[name], "csr_spmm_window") for name in gv}})
+    if "K" in args.parts:
+        out["ptxas"].update({"K": ptxas(built_log("sample_weighted.cu"), "hop_weighted"),
+                             **{name: ptxas(logs[name], "hop_weighted") for name in kv}})
+    if "K" in args.parts:
+        k_gen = torch.Generator(device="cuda")
+        k_gen.manual_seed(8)  # as chip_smoke.weighted_phase's: the same bench hop
+        out.update(k_section(libs, list(kv), k_gen))
+        torch.cuda.empty_cache()
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
 
-    n, B = 4_000_000, 1 << 19
-    data = torch.randn(n, 256, generator=gen, device="cuda")
-    ids = torch.randint(0, n, (B,), generator=gen, device="cuda", dtype=torch.int32)
-    idx = ids.long()
-    ref = G.gather_rows_masked(data, ids)
-    tile_bytes = G.MASKED_TILE_BYTES
+    if "J" in args.parts:
+        n, B = 4_000_000, 1 << 19
+        data = torch.randn(n, 256, generator=gen, device="cuda")
+        ids = torch.randint(0, n, (B,), generator=gen, device="cuda", dtype=torch.int32)
+        idx = ids.long()
+        ref = G.gather_rows_masked(data, ids)
+        tile_bytes = G.MASKED_TILE_BYTES
 
-    def j_call(lib=None, tb=tile_bytes):
-        def call():
-            G.MASKED_TILE_BYTES = tb
-            try:
-                if lib is None:
-                    return G.gather_rows_masked(data, ids)
-                with launching(G.ROW_GATHER_MASKED, lib):
-                    return G.gather_rows_masked(data, ids)
-            finally:
-                G.MASKED_TILE_BYTES = tile_bytes
-        return call
-
-    fns = {"A": lambda: G.gather_rows(data, ids), "index_select": lambda: torch.index_select(data, 0, idx)}
-    fns.update({f"J tiles of {tb // 1024} KB": j_call(tb=tb) for tb in (4096, 8192, 16384, 32768)})
-    fns.update({name: j_call(libs[name]) for name in jv})
-    for name, fn in fns.items():
-        if name.startswith("J") and not torch.equal(bits(fn()), bits(ref)):
-            raise SystemExit(f"kernel_variants: {name} differs from kernel J")
-    out["J"] = in_turns(fns)
-    out["J"]["shape"] = f"{B} uniform ids into [{n}, 256] f32, kernel tiles of {tile_bytes} bytes"
-    del data, ids, idx, ref
-    torch.cuda.empty_cache()
-
-    g = clustered_csr(1 << 20, 16, 192)
-    x = torch.randn(g.node_count, 256, generator=gen, device="cuda")
-    w = torch.rand(g.edge_count, generator=gen, device="cuda")
-    t_rp, t_col, perm = S.transpose_csr(g.row_ptr, g.col, g.node_count)
-    cases = {"mean": ((g.row_ptr, g.col, x), {"reduce": "mean"}),
-             "weighted": ((g.row_ptr, g.col, x), {"edge_weight": w}),
-             "transposed": ((t_rp, t_col, x), {"edge_weight": w[perm]})}
-    for case, (a, kw) in cases.items():
-        ref = S.csr_spmm(*a, **kw)
-
-        def g_call(lib=None, a=a, kw=kw):
+        def j_call(lib=None, tb=tile_bytes):
             def call():
-                if lib is None:
-                    return S.csr_spmm(*a, **kw)
-                with launching(S.CSR_SPMM, lib):
-                    return S.csr_spmm(*a, **kw)
+                G.MASKED_TILE_BYTES = tb
+                try:
+                    if lib is None:
+                        return G.gather_rows_masked(data, ids)
+                    with launching(G.ROW_GATHER_MASKED, lib):
+                        return G.gather_rows_masked(data, ids)
+                finally:
+                    G.MASKED_TILE_BYTES = tile_bytes
             return call
 
-        fns = {"G": g_call(), **{name: g_call(libs[name]) for name in gv}}
+        fns = {"A": lambda: G.gather_rows(data, ids),
+               "index_select": lambda: torch.index_select(data, 0, idx)}
+        fns.update({f"J tiles of {tb // 1024} KB": j_call(tb=tb)
+                    for tb in (4096, 8192, 16384, 32768)})
+        fns.update({name: j_call(libs[name]) for name in jv})
         for name, fn in fns.items():
-            if not name.startswith("probe") and not torch.equal(bits(fn()), bits(ref)):
-                raise SystemExit(f"kernel_variants: {name} differs from kernel G ({case})")
-        out[f"G {case}"] = in_turns(fns)
+            if name.startswith("J") and not torch.equal(bits(fn()), bits(ref)):
+                raise SystemExit(f"kernel_variants: {name} differs from kernel J")
+        out["J"] = in_turns(fns)
+        out["J"]["shape"] = f"{B} uniform ids into [{n}, 256] f32, kernel tiles of {tile_bytes} bytes"
+        del data, ids, idx, ref
+        torch.cuda.empty_cache()
+
+    if "G" in args.parts:
+        g = clustered_csr(1 << 20, 16, 192)
+        x = torch.randn(g.node_count, 256, generator=gen, device="cuda")
+        w = torch.rand(g.edge_count, generator=gen, device="cuda")
+        t_rp, t_col, perm = S.transpose_csr(g.row_ptr, g.col, g.node_count)
+        cases = {"mean": ((g.row_ptr, g.col, x), {"reduce": "mean"}),
+                 "weighted": ((g.row_ptr, g.col, x), {"edge_weight": w}),
+                 "transposed": ((t_rp, t_col, x), {"edge_weight": w[perm]})}
+        for case, (a, kw) in cases.items():
+            ref = S.csr_spmm(*a, **kw)
+
+            def g_call(lib=None, a=a, kw=kw):
+                def call():
+                    if lib is None:
+                        return S.csr_spmm(*a, **kw)
+                    with launching(S.CSR_SPMM, lib):
+                        return S.csr_spmm(*a, **kw)
+                return call
+
+            fns = {"G": g_call(), **{name: g_call(libs[name]) for name in gv}}
+            for name, fn in fns.items():
+                if not name.startswith("probe") and not torch.equal(bits(fn()), bits(ref)):
+                    raise SystemExit(f"kernel_variants: {name} differs from kernel G ({case})")
+            out[f"G {case}"] = in_turns(fns)
     line = json.dumps(out)
     print(line, flush=True)
     if args.out:
