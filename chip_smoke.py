@@ -2,7 +2,8 @@
 
 Drives the port's paths through their public entry points: the sampled
 GraphSAGE training step (``wholegraph_tpu_torch.train``) with its embedding
-in device memory, the host-memory tier's gather (``HostEmbedding.gather``)
+in device memory, the same step with the sampled GCN, GAT and RGCN, the
+typed-node (hetero) step, the host-memory tier's gather (``HostEmbedding.gather``)
 at ``bench_host_gather``'s shapes, the same training step with the table
 and LazyAdam's m and v in pinned host memory, full-graph message
 passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
@@ -31,7 +32,10 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    weights on the card and on the CPU, with the embedding in device memory
    and in the host tier: the RNG and samples must be bit-equal, losses and
    touched rows equal within tolerance, untouched rows unchanged, and every
-   cached row equal to its host row;
+   cached row equal to its host row; then three tiny steps each of the
+   sampled GCN (block and true degrees), GAT, RGCN and the hetero step on
+   the card and on the CPU, losses within 1e-5 and the tables' summed row
+   gradients (SGD) within 1e-4 of the largest;
 6. the device-memory path: resets the launch counters, trains STEPS
    full-width steps timed by CUDA events (per step and per stage of
    ``train.STAGES``), fails if any of kernels A-D was not launched or the
@@ -69,6 +73,20 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
    bench's per-run windows, mean): one kernel D launch, bit-equal to
    ``padded_reduce``, within K f32 ulps of the plain version, its gradient
    finite; timed;
+9a. ``[sampled_models]``: the device-memory step at ``SageTrainConfig()``'s
+   full width for the sampled GCN with block and with true degrees
+   (``with_degrees=True``), GAT (4 heads of 64, one in the last layer) and
+   RGCN (2 pseudo-relations): for each, one captured step whose every A, B,
+   C and D call is held against its plain version (A, B and C bit-equal, D
+   within K f32 ulps; D only in GCN, A also for GAT's and RGCN's neighbour
+   rows), then NEW_STEPS timed steps with the counts from 0, failing unless
+   each kernel ran exactly its calls a step; median, p90, stage split, peak
+   memory and a profiled window;
+9b. ``[hetero]``: ``HeteroTrainConfig()`` (the hetero example's widths,
+   counts times 250: 1,000,000 papers, 375,000 authors, 50,000
+   institutions, about 20M edges of 6 relations, the store under LazyAdam),
+   its numpy build timed on its own line, then as in 9a (A 14 and B 9
+   calls a step, C 2, no D);
 10. the host gather: a 4,000,000 x 256 f32 pinned table behind an empty
    cache, batch 524,288, uniform ids and ids clustered in a span of
    1.25 x batch rows; kernel E bit-equal to its plain version, its rate
@@ -130,7 +148,8 @@ passing (``wholegraph_tpu_torch.full_graph``: SAGE, GCN and GAT over a
     on the card against the CPU;
 
 then prints a ``kernels`` JSON line (A-K, G's forward and transposed
-routes apart, B's masked launches beside its own; ``launches`` counts
+routes apart, B's masked launches beside its own, A-D's launches over the
+NEW_STEPS steps of each model of 9a and 9b; ``launches`` counts
 wrapper calls, and G's and H's ``launches_per_call`` the kernels one
 bench call launched, as torch.profiler saw them, which must be G's span,
 window and rows kernels and H's two), the card's
@@ -170,11 +189,11 @@ if not torch.cuda.is_available():
 
 import wholegraph_tpu_torch as wt  # noqa: E402
 from wholegraph_tpu_torch import kernels  # noqa: E402
-from wholegraph_tpu_torch.embedding import (Embedding, HostEmbedding, LazyAdam,  # noqa: E402
-                                            hot_ids_by_degree)
+from wholegraph_tpu_torch.embedding import (SGD, Embedding, HostEmbedding,  # noqa: E402
+                                            LazyAdam, hot_ids_by_degree)
 from wholegraph_tpu_torch.embedding import embedding as emb_mod  # noqa: E402
 from wholegraph_tpu_torch.embedding import host_embedding as host_mod  # noqa: E402
-from wholegraph_tpu_torch.graph import GraphStructure  # noqa: E402
+from wholegraph_tpu_torch.graph import GraphStructure, HeteroFeatureStore  # noqa: E402
 from wholegraph_tpu_torch.models import GATConv, HomoGNN  # noqa: E402
 from wholegraph_tpu_torch.ops import KERNELS  # noqa: E402
 from wholegraph_tpu_torch.ops import gather as gather_mod  # noqa: E402
@@ -620,12 +639,13 @@ def link_rates():
             "h2d_ms": h2d, "d2h_ms": d2h}
 
 
-def device_time(state, batch, step_ms, steps=10, sample_ms=None):
-    """Kernel time per training step under torch.profiler, its share of the
-    unprofiled median step, launches per step, and the kernels that take
-    most of it."""
+def device_time(state, batch, step_ms, steps=10, sample_ms=None, step=None):
+    """Kernel time per training step (``step``, ``wt.train_step`` unless
+    given) under torch.profiler, its share of the unprofiled median step,
+    launches per step, and the kernels that take most of it."""
+    step = step or wt.train_step
     work = [batch() for _ in range(steps)]
-    return profile_steps("profile", lambda i: wt.train_step(state, *work[i], seed=1000 + i),
+    return profile_steps("profile", lambda i: step(state, *work[i], seed=1000 + i),
                          step_ms, steps, sample_ms)
 
 
@@ -741,9 +761,10 @@ def small_parity():
         f"max row diffs {errs} (tol {tol}); host tier: {len(hot)} rows cached, coherent")
 
 
-def train_timed(state, batch, steps, seed0):
-    """``steps`` timed steps: per-step and per-stage CUDA-event ms, host
-    clock ms, losses."""
+def train_timed(state, batch, steps, seed0, step=None):
+    """``steps`` timed steps of ``step`` (``wt.train_step`` unless given):
+    per-step and per-stage CUDA-event ms, host clock ms, losses."""
+    step = step or wt.train_step
     names = ("start",) + STAGES
     step_ms, host_ms, losses = [], [], []
     stage_ms = {s: [] for s in STAGES}
@@ -758,7 +779,7 @@ def train_timed(state, batch, steps, seed0):
 
         t0 = time.perf_counter()
         mark("start")
-        loss = wt.train_step(state, c, y, seed=seed0 + i, mark=mark)
+        loss = step(state, c, y, seed=seed0 + i, mark=mark)
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         step_ms.append(events["start"].elapsed_time(events[STAGES[-1]]))
@@ -769,15 +790,17 @@ def train_timed(state, batch, steps, seed0):
     return step_ms, host_ms, stage_ms, losses, c
 
 
-def timed_steps(tag, state, batch, steps, profile_steps=10):
+def timed_steps(tag, state, batch, steps, profile_steps=10, step=None):
     """One warm-up step; ``steps`` timed steps (:func:`train_timed`) with the
     launch counts from 0, reported; then ``profile_steps`` under the profiler
-    (:func:`device_time`). Returns the summary, the launches of the timed
-    steps and the last batch's centres."""
-    float(wt.train_step(state, *batch(), seed=1))
+    (:func:`device_time`). ``step`` is ``wt.train_step`` unless given.
+    Returns the summary, the launches of the timed steps and the last
+    batch's centres."""
+    step = step or wt.train_step
+    float(step(state, *batch(), seed=1))
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    step_ms, host_ms, stage_ms, losses, c = train_timed(state, batch, steps, 2)
+    step_ms, host_ms, stage_ms, losses, c = train_timed(state, batch, steps, 2, step)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     report_steps(tag, steps, step_ms, host_ms, stage_ms, losses, peak, launches)
@@ -785,7 +808,8 @@ def timed_steps(tag, state, batch, steps, profile_steps=10):
     summary = {"step_median_ms": med, "step_p90_ms": quantile(step_ms, 0.9),
                "sample_median_ms": sample, "peak_bytes": peak,
                "stage_medians_ms": {k: statistics.median(v) for k, v in stage_ms.items()},
-               **device_time(state, batch, med, profile_steps, sample)}
+               "wrapper_launches_per_step": {k: v / steps for k, v in launches.items() if v},
+               **device_time(state, batch, med, profile_steps, sample, step)}
     return summary, launches, c
 
 
@@ -2359,6 +2383,227 @@ def sampled_agg_phase():
     return t
 
 
+# ---------------------------------------------------------------------------
+# the sampled GCN, GAT and RGCN steps and the hetero step
+# ---------------------------------------------------------------------------
+
+NEW_STEPS = 30  # timed steps of each sampled model and of the hetero step (p90 has 3 beyond it)
+SAMPLED_MODELS = (("gcn_block", {"model_type": "gcn", "degree_mode": "block"}),
+                  ("gcn_true", {"model_type": "gcn", "degree_mode": "true"}),
+                  ("gat", {"model_type": "gat"}),
+                  ("rgcn", {"model_type": "rgcn"}))
+
+
+def check_hops(calls):
+    """Kernel C on each hop of a captured step: bit-equal to its plain
+    version on all five ``SampleResult`` fields, timed beside it (CUDA
+    events, and device time from a CUDA graph) and beside its bound."""
+    errs, times = [], []
+    for i, (row_ptr, col, centers, K, seed, hop) in enumerate(calls):
+        def kernel():
+            return sampling_mod.sample_hop_uniform(row_ptr, col, centers, K, seed, hop)
+
+        def plain():
+            return sampling_mod.csr_sample_neighbors_plain(row_ptr, col, centers, K, seed, hop)
+
+        ref = plain()
+        require(same_sample(kernel(), ref), f"sample_hop_uniform hop{i} differs from its plain "
+                                            "version")
+        B, valid = centers.numel(), int(ref.mask.sum())
+        case = f"hop{i} [{B}, {K}]"
+        errs.append({"case": case, "max_abs_err": 0.0, "tol": 0.0, "valid_slots": valid})
+        b_ms, by = bound_ms(B * (4 + 8 + 4) + 4 * valid + B * K * 13)
+        times.append({"case": case, "ms": cuda_ms(kernel), "device_ms": graph_ms(kernel),
+                      "plain_ms": cuda_ms(plain, 5), "library_ms": None, "bound_ms": b_ms,
+                      "bound_by": by})
+    return errs, times
+
+
+def captured_step(step, state, c, y):
+    """One step with every A, B, C and D wrapper call recorded; A's calls
+    come from the embedding's gather and apply and from
+    ``padded_gather_neighbors`` (GAT's and RGCN's neighbour rows)."""
+    calls = {k: [] for k in "ABCD"}
+    with capture(emb_mod, "gather_rows", calls["A"]), \
+            capture(gather_mod, "gather_rows", calls["A"]), \
+            capture(emb_mod, "scatter_rows", calls["B"]), \
+            capture(sampling_mod, "sample_hop_uniform", calls["C"]), \
+            capture(S, "neighbor_reduce", calls["D"]):
+        loss = float(step(state, c, y, seed=0))
+    require(np.isfinite(loss), f"captured step loss {loss}")
+    calls["A"] = [(t.detach(), ids) for t, ids in calls["A"]]
+    calls["D"] = [(x.detach(), nbr, mask, mean) for x, nbr, mask, mean in calls["D"]]
+    return calls, loss
+
+
+def check_new_step(tag, step, state, batch, per_step):
+    """A captured step whose calls per step must be ``per_step`` and whose
+    every A, B, C and D call is held against its plain version; then
+    NEW_STEPS timed steps with the counts from 0, which must be exactly
+    ``per_step`` a step for A-D and nothing of K or C's fetch route."""
+    calls, loss0 = captured_step(step, state, *batch())
+    got = {k: len(v) for k, v in calls.items()}
+    require(got == per_step, f"[{tag}] calls per step {got}, expected {per_step}")
+    checks = {}
+    for key, kern, fn in (("A", G.ROW_GATHER, check_gather), ("B", G.ROW_SCATTER, check_scatter),
+                          ("C", sampling_mod.SAMPLE_HOP, check_hops),
+                          ("D", S.NEIGHBOR_AGG, check_neighbor_agg)):
+        if calls[key]:
+            checks[kern.name] = fn(calls[key])
+            for e in checks[kern.name][0] + checks[kern.name][1]:
+                e["case"] = f"{tag} {e['case']}"
+            log(f"[check] {kern.name} ({tag}): " + json.dumps(checks[kern.name][0]))
+    log(f"[{tag}] captured step: calls {got}, loss {loss0:.5f}")
+    del calls
+    summary, launches, c = timed_steps(tag, state, batch, NEW_STEPS, profile_steps=5, step=step)
+    want = {G.ROW_GATHER.name: per_step["A"], G.ROW_SCATTER.name: per_step["B"],
+            sampling_mod.SAMPLE_HOP.name: per_step["C"], S.NEIGHBOR_AGG.name: per_step["D"]}
+    want = {k: v * NEW_STEPS for k, v in want.items()}
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    require(all(launches[k] == v for k, v in want.items()) and not others,
+            f"[{tag}] launches {launches} over {NEW_STEPS} steps, expected {want} and no other")
+    summary["launches"] = launches
+    return summary, checks
+
+
+def sampled_models_phase(cfg, batch_of):
+    """``[sampled_models]``: the device-memory step at ``SageTrainConfig()``'s
+    full width (the graph, table and batch of ``[train]``) for the sampled
+    GCN with block and with true degrees, GAT (4 heads of 64, one head in
+    the last layer) and RGCN (2 pseudo-relations): each through
+    :func:`check_new_step`."""
+    out, checks = {}, {}
+    for tag, kw in SAMPLED_MODELS:
+        mcfg = dataclasses.replace(cfg, **kw)
+        t0 = time.perf_counter()
+        state = wt.build_synthetic(mcfg, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        log(f"[sampled_models] {tag}: {mcfg} built in {time.perf_counter() - t0:.2f} s, "
+            f"{state.graph.edge_count} edges")
+        gcn = kw["model_type"] == "gcn"
+        out[tag], checks[tag] = check_new_step(tag, wt.train_step, state, batch_of(state),
+                                               {"A": 4 if gcn else 6, "B": 3, "C": 2,
+                                                "D": 2 if gcn else 0})
+        out[tag]["config"] = kw
+        del state
+        torch.cuda.empty_cache()
+    log("[sampled_models] " + json.dumps({t: {k: v[k] for k in ("step_median_ms", "step_p90_ms",
+                                                                 "peak_bytes", "busy_share")}
+                                          for t, v in out.items()}))
+    return out, checks
+
+
+def hetero_phase():
+    """``[hetero]``: ``HeteroTrainConfig()`` (the hetero example's widths,
+    counts times 250: 1,000,000 papers, 375,000 authors, 50,000
+    institutions) with the store trained under LazyAdam. The numpy build is
+    timed on its own line; then :func:`check_new_step` on
+    ``hetero_train_step`` with batches of distinct training papers."""
+    cfg = wt.HeteroTrainConfig()
+    t0 = time.perf_counter()
+    state = wt.build_hetero(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    g = state.graph
+    log(f"[hetero] {cfg}: dataset (numpy), CSR and store built in {time.perf_counter() - t0:.2f} s "
+        f"(host side): {g.node_count} nodes, {g.edge_count} edges, {g.num_relations} relations, "
+        f"max degree {g.max_degree}, tables " + json.dumps(
+            {n: list(e.table.shape) for n, e in state.store.embeddings.items()}))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    train = state.train_ids
+
+    def batch():
+        c = train[torch.randperm(train.numel(), generator=gen, device="cuda")[:cfg.batch]]
+        return c, state.labels[c.long()]
+
+    summary, checks = check_new_step("hetero", wt.hetero_train_step, state, batch,
+                                     {"A": 14, "B": 9, "C": 2, "D": 0})
+    for n, e in state.store.embeddings.items():
+        require(bool(torch.isfinite(e.table).all()), f"[hetero] non-finite {n} table")
+    del state
+    torch.cuda.empty_cache()
+    return summary, checks
+
+
+def card_copy(cpu):
+    """A card copy of a CPU ``SageTrainState``: its graph (edge types
+    included), table and sparse optimizer, labels and weights, a fresh
+    Adam."""
+    g, c = cpu.graph, cpu.config
+    model = HomoGNN(c.dim, c.hidden, c.num_classes, model_type=c.model_type,
+                    num_heads=c.num_heads, num_relations=c.num_relations,
+                    degree_mode=c.degree_mode, device="cuda")
+    model.load_state_dict(cpu.model.state_dict())
+    graph = GraphStructure(g.row_ptr.cuda(), g.col.cuda(), g.node_count, max_degree=g.max_degree,
+                           edge_type=None if g.edge_type is None else g.edge_type.cuda(),
+                           num_relations=g.num_relations)
+    emb = Embedding.create(g.node_count, c.dim, optimizer=cpu.embedding.optimizer, device="cuda")
+    return dataclasses.replace(cpu, graph=graph, embedding=emb.from_array(cpu.embedding.to_array()),
+                               model=model, dense_opt=torch.optim.Adam(model.parameters(), lr=c.lr),
+                               labels=cpu.labels.cuda())
+
+
+def model_parity():
+    """``[parity]``: three tiny steps of each sampled model and of the
+    hetero step on the card and on the CPU from the same graph, table (or
+    store) and weights: losses within 1e-5, and each table's change over
+    the steps divided by the rate (the summed row gradients) within 1e-4
+    of the largest (f32 sums in other orders). The tables train under SGD
+    here: LazyAdam's step g / (|g| + 1e-8) turns f32 noise of 1e-9 on an
+    element whose gradient is near 0 into a difference of up to the rate
+    (the small and weighted parities hold LazyAdam on SAGE, whose row
+    gradients keep clear of that)."""
+    tol = 1e-5
+    rs = np.random.RandomState(8)
+    errs = {}
+
+    def compare(tag, states, step, lr, batches, tables):
+        before = [(a.clone(), b.clone()) for a, b in tables()]
+        losses = {"gpu": [], "cpu": []}
+        for i, c in enumerate(batches):
+            for name, st in zip(("gpu", "cpu"), states):
+                cd = c.to(st.labels.device)
+                losses[name].append(float(step(st, cd, st.labels[cd.long()], seed=i)))
+        for la, lb in zip(losses["gpu"], losses["cpu"]):
+            require(abs(la - lb) <= tol * max(1.0, abs(lb)), f"{tag} loss {la} (gpu) vs {lb} (cpu)")
+        err = 0.0
+        for (a, b), (a0, b0) in zip(tables(), before):
+            ga, gb = (a - a0).cpu() / lr, (b - b0) / lr
+            e = max_err(ga, gb)
+            require(e <= 1e-4 * max(1.0, gb.abs().max().item()),
+                    f"[parity] {tag}: summed row gradients differ by {e}")
+            err = max(err, e)
+        errs[tag] = {"losses": losses, "summed_grad_err": err}
+
+    for tag, kw in SAMPLED_MODELS:
+        cfg = wt.SageTrainConfig(n_nodes=400, deg=16, dim=128, hidden=128, num_classes=16,
+                                 batch=32, fanouts=(10, 15), **kw)
+        cpu = wt.build_synthetic(cfg, device="cpu", seed=3)
+        cpu.embedding = Embedding.create(cfg.n_nodes, cfg.dim, optimizer=SGD(), device="cpu"
+                                         ).from_array(cpu.embedding.to_array())
+        gpu = card_copy(cpu)
+        batches = [torch.from_numpy(rs.randint(0, cfg.n_nodes, cfg.batch).astype(np.int32))
+                   for _ in range(3)]
+        compare(tag, (gpu, cpu), wt.train_step, cfg.lr, batches,
+                lambda: [(gpu.embedding.table, cpu.embedding.table)])
+    hcfg = wt.HeteroTrainConfig(n_paper=800, n_author=300, n_inst=40, num_classes=8, hidden=128,
+                                batch=64, fanouts=(10, 10))
+    hcpu, hgpu = wt.build_hetero(hcfg, device="cpu", seed=2), wt.build_hetero(hcfg, device="cuda",
+                                                                             seed=2)
+    hgpu.model.load_state_dict(hcpu.model.state_dict())
+    for st in (hcpu, hgpu):
+        st.store = HeteroFeatureStore.create(st.store.space, optimizer=SGD(),
+                                             device=st.labels.device).from_arrays(
+            {n: e.to_array() for n, e in hcpu.store.embeddings.items()})
+    batches = [torch.from_numpy(rs.choice(hcpu.train_ids.numpy(), hcfg.batch, replace=False))
+               for _ in range(3)]
+    compare("hetero", (hgpu, hcpu), wt.hetero_train_step, hcfg.lr * 0.1, batches,
+            lambda: [(hgpu.store.embeddings[n].table, hcpu.store.embeddings[n].table)
+                     for n in hcpu.store.space.names])
+    log("[parity] 3 tiny steps each of GCN (block, true), GAT, RGCN and hetero, card vs CPU: "
+        + json.dumps(errs))
+
+
 def bench_entry(kern, name, launches, errs, main_call, calls, **extra):
     """One kernel's line from the times of its bench-shape call."""
     return {
@@ -2450,6 +2695,7 @@ def main():
 
     small_parity()
     weighted_parity()
+    model_parity()
 
     # the device-memory path: reset the counters, train, read them
     _, launches, c = timed_steps("train", state, batch, STEPS)
@@ -2465,6 +2711,11 @@ def main():
     w_errs, w_bench = weighted_phase()
     wt_errs, wt_times, wt_launches, wt_summary = weighted_train_phase(cfg, batch_of)
     sagg = sampled_agg_phase()
+    # the sampled GCN, GAT and RGCN steps, and the hetero step
+    sm, sm_checks = sampled_models_phase(cfg, batch_of)
+    het, het_checks = hetero_phase()
+    new_steps = {**sm, "hetero": het}
+    new_checks = {**sm_checks, "hetero": het_checks}
 
     bench, bench_errs = host_gather_phase(link)
     host_errs, host_times, host_launches = host_tier_phase(cfg, link)
@@ -2508,6 +2759,18 @@ def main():
                           "launches": launches[G.SAMPLE_COLS.name],
                           **{k: sum(t["fetch_route"][k] for t in c["calls"])
                              for k in ("ms", "plain_ms", "bound_ms")}})
+    for e in out:  # A-D on the new steps: launches over NEW_STEPS steps, checks and calls
+        e["launches_new_steps"] = {t: v["launches"][e["name"]] for t, v in new_steps.items()}
+        e["new_steps"] = NEW_STEPS
+        for t, ch in new_checks.items():
+            if e["name"] in ch:
+                e["checks"] = e["checks"] + ch[e["name"]][0]
+                e["calls_" + t] = ch[e["name"]][1]
+        e["max_abs_err"] = max(c["max_abs_err"] for c in e["checks"])
+        e["tol"] = max(c["tol"] for c in e["checks"])
+    a = next(e for e in out if e["name"] == G.ROW_GATHER.name)  # the new steps' readings
+    a["new_step_summaries"] = {t: {k: v for k, v in s.items() if k != "launches"}
+                               for t, s in new_steps.items()}
     d = next(e for e in out if e["name"] == S.NEIGHBOR_AGG.name)  # D gains the windowed call
     d.update(sampled_agg=sagg)
     d["checks"] = d["checks"] + [{k: sagg[k] for k in ("case", "max_abs_err", "tol")}]

@@ -24,7 +24,7 @@ import torch
 
 import wholegraph_tpu_torch as wt
 from wholegraph_tpu_torch import kernels
-from wholegraph_tpu_torch.embedding import Embedding, HostEmbedding, LazyAdam
+from wholegraph_tpu_torch.embedding import SGD, Embedding, HostEmbedding, LazyAdam
 from wholegraph_tpu_torch.graph import GraphStructure
 from wholegraph_tpu_torch.models import HomoGNN
 from wholegraph_tpu_torch.ops import gather_kernels as G
@@ -1114,3 +1114,125 @@ def test_weighted_multilayer_and_step_on_card_match_cpu(dev):
         la, lb = (float(wt.train_step(s, c.to(s.labels.device), s.labels[c.long().to(
             s.labels.device)], seed=i)) for s in states)
         assert abs(la - lb) <= 1e-5 * max(1.0, abs(la)), (la, lb)
+
+
+# ---------------------------------------------------------------------------
+# the sampled GCN, GAT and RGCN, and the hetero step (kernels A-D)
+# ---------------------------------------------------------------------------
+
+
+def _on_card(cpu, dev):
+    """A card copy of a CPU ``SageTrainState``: its graph (edge types
+    included), table and sparse optimizer, labels and weights, a fresh
+    Adam."""
+    import dataclasses
+
+    g = cpu.graph
+    model = HomoGNN(cpu.config.dim, cpu.config.hidden, cpu.config.num_classes,
+                    model_type=cpu.config.model_type, num_heads=cpu.config.num_heads,
+                    num_relations=cpu.config.num_relations, degree_mode=cpu.config.degree_mode,
+                    device=dev)
+    model.load_state_dict(cpu.model.state_dict())
+    graph = GraphStructure(g.row_ptr.to(dev), g.col.to(dev), g.node_count,
+                           max_degree=g.max_degree,
+                           edge_type=None if g.edge_type is None else g.edge_type.to(dev),
+                           num_relations=g.num_relations)
+    emb = Embedding.create(g.node_count, cpu.config.dim, optimizer=cpu.embedding.optimizer,
+                           device=dev)
+    emb.from_array(cpu.embedding.to_array())
+    return dataclasses.replace(cpu, graph=graph, embedding=emb, model=model,
+                               dense_opt=torch.optim.Adam(model.parameters(), lr=cpu.config.lr),
+                               labels=cpu.labels.to(dev))
+
+
+@pytest.mark.parametrize("model_type,degree_mode", [("gcn", "block"), ("gcn", "true"),
+                                                    ("gat", "auto"), ("rgcn", "auto")])
+def test_sampled_model_steps_on_card_match_cpu(dev, model_type, degree_mode):
+    """Three steps of each new model on the card against the CPU from the
+    same graph, table and weights: losses within 1e-5, and the table's
+    change over the steps over the rate (the summed row gradients) within
+    1e-4 of the largest. The table trains under SGD: LazyAdam's step
+    g / (|g| + 1e-8) turns f32 noise of 1e-9 on an element whose gradient
+    is near 0 into a difference of up to the rate. The card ran A, B, C
+    and (GCN) D."""
+    cfg = wt.SageTrainConfig(n_nodes=400, deg=12, dim=64, hidden=64, num_classes=8, batch=32,
+                             fanouts=(5, 6), model_type=model_type, degree_mode=degree_mode)
+    cpu = wt.build_synthetic(cfg, device="cpu", seed=2)
+    table0 = cpu.embedding.table.clone()
+    cpu.embedding = Embedding.create(cfg.n_nodes, cfg.dim, optimizer=SGD(), device="cpu"
+                                     ).from_array(table0.numpy())
+    card = _on_card(cpu, dev)
+    for k in (G.ROW_GATHER, G.ROW_SCATTER, SM.SAMPLE_HOP, S.NEIGHBOR_AGG):
+        k.launches = 0
+    rs = np.random.RandomState(3)
+    for i in range(3):
+        c = torch.from_numpy(rs.randint(0, cfg.n_nodes, cfg.batch).astype(np.int32))
+        a = wt.train_step(card, c.to(dev), card.labels[c.long().to(dev)], seed=i)
+        b = wt.train_step(cpu, c, cpu.labels[c.long()], seed=i)
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    ga = (card.embedding.table.cpu() - table0) / cfg.lr
+    gb = (cpu.embedding.table - table0) / cfg.lr
+    assert (ga - gb).abs().max() <= 1e-4 * max(1.0, float(gb.abs().max()))
+    # A: the gather and SGD's one apply read a step, and GAT's and RGCN's neighbour rows
+    a_per_step = 2 + (2 if model_type in ("gat", "rgcn") else 0)
+    assert G.ROW_GATHER.launches == 3 * a_per_step and G.ROW_SCATTER.launches == 3
+    assert SM.SAMPLE_HOP.launches == 6
+    assert S.NEIGHBOR_AGG.launches == (6 if model_type == "gcn" else 0)
+
+
+def test_rgcn_full_graph_on_card_matches_cpu(dev):
+    rs = np.random.RandomState(4)
+    n = 300
+    g = GraphStructure.from_coo(rs.randint(0, n, 2000), rs.randint(0, n, 2000), n,
+                                edge_type=rs.randint(0, 3, 2000), device="cpu")
+    model = HomoGNN(32, 32, 4, model_type="rgcn", num_relations=3, device="cpu")
+    model.reset_parameters(_gen(5))
+    card = HomoGNN(32, 32, 4, model_type="rgcn", num_relations=3, device=dev)
+    card.load_state_dict(model.state_dict())
+    x = torch.randn(n, 32, generator=_gen(6))
+    outs = []
+    for m, d in ((card, dev), (model, torch.device("cpu"))):
+        gd = GraphStructure(g.row_ptr.to(d), g.col.to(d), n, edge_type=g.edge_type.to(d),
+                            num_relations=3).to_full_graph()
+        xd = x.to(d).requires_grad_()
+        out = m(xd, graph=gd)
+        out.square().sum().backward()
+        outs.append((out.detach().cpu(), xd.grad.cpu(), m.convs[0].w_rel.grad.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_hetero_steps_on_card_match_cpu(dev):
+    """Three hetero steps (typed gather, HeteroGNN, typed apply) on the card
+    against the CPU from the same dataset and weights: losses within 1e-5,
+    and each type's summed row gradients (its change under SGD over the
+    rate, as in the test above) within 1e-4 of the largest; A and B ran, D
+    did not."""
+    from wholegraph_tpu_torch.graph import HeteroFeatureStore
+
+    cfg = wt.HeteroTrainConfig(n_paper=600, n_author=200, n_inst=30, num_classes=8, hidden=64,
+                               batch=64, fanouts=(6, 5))
+    cpu = wt.build_hetero(cfg, device="cpu", seed=1)
+    card = wt.build_hetero(cfg, device=dev, seed=1)
+    card.model.load_state_dict(cpu.model.state_dict())
+    tables0 = {n: e.to_array() for n, e in cpu.store.embeddings.items()}
+    for st in (cpu, card):
+        st.store = HeteroFeatureStore.create(cpu.store.space, optimizer=SGD(),
+                                             device=st.labels.device).from_arrays(tables0)
+    for k in (G.ROW_GATHER, G.ROW_SCATTER, S.NEIGHBOR_AGG):
+        k.launches = 0
+    rs = np.random.RandomState(2)
+    for i in range(3):
+        c = torch.from_numpy(rs.choice(cpu.train_ids.numpy(), cfg.batch, replace=False))
+        a = wt.hetero_train_step(card, c.to(dev), card.labels[c.long().to(dev)], seed=i)
+        b = wt.hetero_train_step(cpu, c, cpu.labels[c.long()], seed=i)
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    lr = cfg.lr * 0.1
+    for n in cpu.store.space.names:
+        t0 = torch.from_numpy(tables0[n])
+        ga = (card.store.embeddings[n].table.cpu() - t0) / lr
+        gb = (cpu.store.embeddings[n].table - t0) / lr
+        assert (ga - gb).abs().max() <= 1e-4 * max(1.0, float(gb.abs().max())), n
+    # A: 3 typed gathers, 2 RGCN neighbour gathers, a type's SGD apply read; B: one a type
+    assert G.ROW_GATHER.launches == 3 * 8 and G.ROW_SCATTER.launches == 3 * 3
+    assert S.NEIGHBOR_AGG.launches == 0

@@ -70,7 +70,9 @@ def no_cuda(monkeypatch):
                                    "clustered_csr", "gat_model", "build_full_graph",
                                    "sharded_table", "sharded_table_from_array",
                                    "sharded_table_host", "weighted_graph",
-                                   "build_synthetic_weighted", "entry"])
+                                   "build_synthetic_weighted", "entry", "rgcn_model",
+                                   "build_synthetic_rgcn", "typed_graph", "hetero_store",
+                                   "hetero_model", "hetero_dataset", "build_hetero"])
 def test_default_device_raises_without_cuda(no_cuda, entry):
     calls = {
         "embedding": lambda: Embedding.create(10, 4),
@@ -91,6 +93,17 @@ def test_default_device_raises_without_cuda(no_cuda, entry):
         "build_synthetic_weighted": lambda: wt.build_synthetic(
             wt.SageTrainConfig(n_nodes=10, sample_method="weighted")),
         "entry": lambda: wt.entry.entry(),
+        "rgcn_model": lambda: HomoGNN(8, 8, 2, model_type="rgcn", num_relations=2),
+        "build_synthetic_rgcn": lambda: wt.build_synthetic(
+            wt.SageTrainConfig(n_nodes=10, model_type="rgcn")),
+        "typed_graph": lambda: GraphStructure.from_coo(np.array([0, 1]), np.array([1, 0]), 2,
+                                                       edge_type=np.array([0, 1])),
+        "hetero_store": lambda: wt.graph.HeteroFeatureStore.create(
+            wt.graph.NodeTypeSpace.create({"a": 3}, {"a": 2})),
+        "hetero_model": lambda: wt.models.HeteroGNN({"a": 2}, 8, 2, num_relations=2),
+        "hetero_dataset": lambda: wt.graph.synthetic_hetero_dataset(40, 10, 5),
+        "build_hetero": lambda: wt.build_hetero(wt.HeteroTrainConfig(n_paper=40, n_author=10,
+                                                                     n_inst=5)),
     }
     with pytest.raises(CudaError, match="CUDA is not available"):
         calls[entry]()
@@ -128,6 +141,15 @@ def test_kernels_import_and_cpu_path_build_nothing(monkeypatch):
         assert np.isfinite(float(loss)) and torch.isfinite(dx).all()
         assert np.isfinite(float(wt.eval_full_graph(fs.model, fs.embedding, fs.fg, c,
                                                     fs.labels[:4])[0]))
+    # the sampled GCN (both degree modes), GAT and RGCN steps, and the hetero step (A-D)
+    for mt, dm in (("gcn", "block"), ("gcn", "true"), ("gat", "auto"), ("rgcn", "auto")):
+        state = wt.build_synthetic(dataclasses.replace(cfg, model_type=mt, degree_mode=dm,
+                                                       num_heads=2), device="cpu")
+        assert np.isfinite(float(wt.train_step(state, c, state.labels[c.long()], seed=0)))
+    hs = wt.build_hetero(wt.HeteroTrainConfig(n_paper=40, n_author=10, n_inst=5, num_classes=3,
+                                              hidden=8, batch=4, fanouts=(2, 2)), device="cpu")
+    hc = hs.train_ids[:4]
+    assert np.isfinite(float(wt.hetero_train_step(hs, hc, hs.labels[hc.long()], seed=0)))
     # the sharded store: both gather routes, their gradient, set and add (kernels I, J, B)
     table = wt.ShardedTable.create(30, 4, init=lambda g, shape, dt: torch.randn(shape, generator=g),
                                    device="cpu")

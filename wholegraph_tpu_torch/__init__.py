@@ -18,14 +18,18 @@ row store on one card (:class:`.memory.ShardedTable` with its
 (``SageTrainConfig(sample_method="weighted")``, kernel K), the windowed
 sampled aggregation, the padded/CSR graph ops, the apply's
 ``unique_chunk``, the synthetic dataset (:mod:`.graph.dataset`) and the
-compile-check entry (:mod:`.entry`).
+compile-check entry (:mod:`.entry`); the tenth adds the sampled GCN and GAT,
+RGCN (``SageTrainConfig(model_type=...)``), and the typed-node store and
+model (:mod:`.graph.hetero`, :class:`.models.HeteroGNN`,
+:func:`.train.hetero_train_step`).
 """
 
 from . import embedding, entry, full_graph, graph, kernels, memory, models, ops, utils
 from .full_graph import (FullGraphConfig, build_full_graph, clustered_csr, eval_full_graph,
                          full_graph_value_and_grad)
 from .memory import PartitionPlan, ShardedTable
-from .train import SageTrainConfig, SageTrainState, build_synthetic, train_step
+from .train import (HeteroTrainConfig, HeteroTrainState, SageTrainConfig, SageTrainState,
+                    build_hetero, build_synthetic, hetero_train_step, train_step)
 
 __version__ = "0.1.0"
 
@@ -43,6 +47,10 @@ __all__ = [
     "SageTrainState",
     "build_synthetic",
     "train_step",
+    "HeteroTrainConfig",
+    "HeteroTrainState",
+    "build_hetero",
+    "hetero_train_step",
     "FullGraphConfig",
     "build_full_graph",
     "clustered_csr",

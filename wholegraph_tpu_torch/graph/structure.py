@@ -1,11 +1,12 @@
 """Graph structure and multi-layer mini-batch sampling, one device.
 
 Port of the single-device part of ``wholegraph_tpu/graph/structure.py``:
-:class:`HopSubgraph` (with its windowed-aggregation plan),
-:class:`MultilayerSample` (``run_bounds``, ``with_windowed_agg``) and
-:class:`GraphStructure` with ``from_coo`` (edge weights included),
-``with_weighted_fastpath``, ``to_full_graph``, ``sample_one_hop`` and
-``multilayer_sample``, uniform or weighted.
+:class:`HopSubgraph` (with its edge types, true degrees and
+windowed-aggregation plan), :class:`MultilayerSample` (``run_bounds``,
+``with_windowed_agg``) and :class:`GraphStructure` with ``from_coo`` (edge
+weights and edge types included), ``with_weighted_fastpath``,
+``to_full_graph``, ``sample_one_hop`` and ``multilayer_sample``, uniform or
+weighted, with or without the true degrees.
 
 Shape discipline is the JAX package's: every hop's output is padded. Layer
 l has ``B * prod_{i<l}(K_i + 1)`` target slots; ``append_unique`` keeps the
@@ -27,7 +28,7 @@ import torch
 from ..ops.graph_ops import append_unique
 from ..ops.sampling import SampleResult, csr_sample_neighbors, interleave_col_weights
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.error import NotSupported, check_input
+from ..utils.error import check_input
 
 
 @dataclasses.dataclass
@@ -37,6 +38,12 @@ class HopSubgraph:
     nbr_idx:     [B_l, K] int32 neighbour positions in the NEXT level's unique list.
     mask:        [B_l, K] edge validity.
     center_mask: [B_l] target-slot validity.
+    edge_type:   [B_l, K] int32 relation ids (RGCN), 0 on masked slots; None
+        when the graph has no edge types.
+    node_degree: [U_{l+1}] int32 true graph degrees (``row_ptr`` diffs) of
+        the NEXT level's unique nodes, 0 on padding; filled by
+        ``multilayer_sample(with_degrees=True)`` for the sampled GCN's
+        exact normalisation.
     run_bounds, windows: the windowed-aggregation plan
         (:meth:`MultilayerSample.with_windowed_agg`); a conv that finds it
         aggregates through ``padded_reduce_windowed``.
@@ -45,6 +52,8 @@ class HopSubgraph:
     nbr_idx: torch.Tensor
     mask: torch.Tensor
     center_mask: torch.Tensor
+    edge_type: Optional[torch.Tensor] = None
+    node_degree: Optional[torch.Tensor] = None
     run_bounds: Optional[tuple] = None
     windows: Optional[tuple] = None
 
@@ -105,19 +114,22 @@ class GraphStructure:
     with :meth:`from_coo`. ``edge_weight`` [E] (float32) serves weighted
     sampling, which needs ``max_degree``: a weighted graph built without one
     reads it from ``row_ptr`` once. ``cw_blocks`` is the pair table of
-    :meth:`with_weighted_fastpath`."""
+    :meth:`with_weighted_fastpath`. ``edge_type`` [E] (int32) holds each
+    edge's relation id for RGCN, ``num_relations`` their count."""
 
     def __init__(self, row_ptr: torch.Tensor, col: torch.Tensor, node_count: int,
                  edge_count: Optional[int] = None, max_degree: Optional[int] = None,
                  edge_weight: Optional[torch.Tensor] = None,
-                 cw_blocks: Optional[torch.Tensor] = None):
+                 cw_blocks: Optional[torch.Tensor] = None,
+                 edge_type: Optional[torch.Tensor] = None, num_relations: int = 0):
         check_input(row_ptr.dim() == 1 and row_ptr.shape[0] == node_count + 1,
                     f"row_ptr must be [{node_count + 1}], got {tuple(row_ptr.shape)}")
         check_input(col.dim() == 1, "col must be 1-D")
         check_input(row_ptr.device == col.device, "row_ptr and col on different devices")
         check_input(col.shape[0] < 2**31, "edge offsets are int32: the graph must have < 2^31 edges")
         for name, t, shape in (("edge_weight", edge_weight, col.shape),
-                               ("cw_blocks", cw_blocks, (col.shape[0], 2))):
+                               ("cw_blocks", cw_blocks, (col.shape[0], 2)),
+                               ("edge_type", edge_type, col.shape)):
             check_input(t is None or (tuple(t.shape) == tuple(shape) and t.device == col.device),
                         f"{name} must be {tuple(shape)} on the graph's device")
         self.row_ptr = row_ptr.to(torch.int32)
@@ -126,6 +138,8 @@ class GraphStructure:
         self.edge_count = int(col.shape[0] if edge_count is None else edge_count)
         self.edge_weight = None if edge_weight is None else edge_weight.to(torch.float32)
         self.cw_blocks = cw_blocks
+        self.edge_type = None if edge_type is None else edge_type.to(torch.int32)
+        self.num_relations = int(num_relations)
         if max_degree is None and edge_weight is not None:
             max_degree = int((self.row_ptr[1:] - self.row_ptr[:-1]).max()) if node_count else 0
         self.max_degree = max_degree
@@ -142,15 +156,18 @@ class GraphStructure:
         check_input(self.edge_weight is not None, "with_weighted_fastpath needs edge_weight")
         return GraphStructure(self.row_ptr, self.col, self.node_count, self.edge_count,
                               self.max_degree, self.edge_weight,
-                              interleave_col_weights(self.col, self.edge_weight))
+                              interleave_col_weights(self.col, self.edge_weight),
+                              self.edge_type, self.num_relations)
 
     @staticmethod
     def from_coo(src: np.ndarray, dst: np.ndarray, node_count: int, *,
-                 edge_weight: Optional[np.ndarray] = None, add_reverse: bool = False,
-                 device: DeviceLike = "cuda") -> "GraphStructure":
+                 edge_weight: Optional[np.ndarray] = None,
+                 edge_type: Optional[np.ndarray] = None, num_relations: int = 0,
+                 add_reverse: bool = False, device: DeviceLike = "cuda") -> "GraphStructure":
         """Host-side CSR build from a COO edge list, moved to ``device``;
-        ``edge_weight`` follows its edges (doubled with ``add_reverse``,
-        permuted with the sort by source)."""
+        ``edge_weight`` and ``edge_type`` follow their edges (doubled with
+        ``add_reverse``, permuted with the sort by source). A graph with
+        edge types and ``num_relations=0`` counts ``max(edge_type) + 1``."""
         dev = resolve_device(device)
         src = np.asarray(src, dtype=np.int64)
         dst = np.asarray(dst, dtype=np.int64)
@@ -158,11 +175,18 @@ class GraphStructure:
             src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
             if edge_weight is not None:
                 edge_weight = np.concatenate([edge_weight, edge_weight])
+            if edge_type is not None:
+                edge_type = np.concatenate([edge_type, edge_type])
         order = np.argsort(src, kind="stable")
         src, dst = src[order], dst[order]
-        weight = None
+        weight = etype = None
         if edge_weight is not None:
             weight = torch.from_numpy(np.asarray(edge_weight)[order].astype(np.float32)).to(dev)
+        if edge_type is not None:
+            edge_type = np.asarray(edge_type)[order]
+            if not num_relations:
+                num_relations = int(edge_type.max()) + 1
+            etype = torch.from_numpy(edge_type.astype(np.int32)).to(dev)
         counts = np.bincount(src, minlength=node_count)
         row_ptr = np.concatenate([[0], np.cumsum(counts)])
         return GraphStructure(
@@ -172,6 +196,8 @@ class GraphStructure:
             edge_count=len(dst),
             max_degree=int(counts.max()) if node_count else 0,
             edge_weight=weight,
+            edge_type=etype,
+            num_relations=num_relations,
         )
 
     def to_full_graph(self, *, windowed: bool = False, tile: int = 256):
@@ -198,6 +224,7 @@ class GraphStructure:
             edge_src=self.col,
             edge_dst=csr_edge_dst(self.row_ptr, self.col.shape[0]).to(torch.int32),
             num_nodes=self.node_count,
+            edge_type=self.edge_type,
             row_ptr=self.row_ptr,
             window=window,
             edge_cap=edge_cap,
@@ -222,12 +249,16 @@ class GraphStructure:
                           with_degrees: bool = False) -> MultilayerSample:
         """multilayer_sample_without_replacement analog: per layer, sample
         (weighted or not) and ``append_unique``, producing nested padded
-        subgraphs. ``with_degrees`` (the sampled GCN's true degrees) is not
-        ported yet and raises :class:`NotSupported`."""
-        if with_degrees:
-            raise NotSupported("multilayer_sample(with_degrees=True) comes with the sampled "
-                               "GCN, which is not ported yet")
+        subgraphs (``structure.py:303-395``).
+
+        A graph with edge types puts each sampled edge's type on its hop
+        (``HopSubgraph.edge_type``, 0 where masked). ``with_degrees=True``
+        also puts the true degree ``row_ptr[u + 1] - row_ptr[u]`` of every
+        valid unique id of the next level on the hop
+        (``HopSubgraph.node_degree``, 0 on padding). Both are plain
+        ``index_select``s, as they are plain ``jnp.take``s in JAX."""
         n = self.node_count
+        E = self.col.shape[0]
         gids = centers.to(torch.int32)
         gmask = (torch.ones(gids.shape, dtype=torch.bool, device=gids.device)
                  if center_mask is None else center_mask)
@@ -243,12 +274,24 @@ class GraphStructure:
             tgt = torch.where(gmask, gids, dummy)
             nbrs = torch.where(emask, res.neighbors, 0).reshape(-1)
             uids, _, nmap = append_unique(tgt, nbrs, emask.reshape(-1))
+            etypes = None
+            if self.edge_type is not None:  # clip, as JAX's take does, then zero where masked
+                eids = torch.where(emask, res.edge_ids, 0).reshape(-1).long().clamp(0, E - 1)
+                etypes = torch.where(emask, self.edge_type.index_select(0, eids).reshape(U, K), 0)
+            next_mask = (uids >= 0) & (uids < n)
+            node_degree = None
+            if with_degrees:
+                safe = torch.where(next_mask, uids, 0).long()
+                deg = self.row_ptr.index_select(0, safe + 1) - self.row_ptr.index_select(0, safe)
+                node_degree = torch.where(next_mask, deg, 0).to(torch.int32)
             hops.append(HopSubgraph(
                 nbr_idx=torch.where(emask, nmap.reshape(U, K), 0),
                 mask=emask,
                 center_mask=gmask,
+                edge_type=etypes,
+                node_degree=node_degree,
             ))
-            gmask = (uids >= 0) & (uids < n)
+            gmask = next_mask
             # padding → the out-of-range sentinel n; gathers clip it and the
             # apply's mask= keeps it away from the table and optimizer state
             gids = torch.where(gmask, uids, n)

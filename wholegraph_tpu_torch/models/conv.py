@@ -2,17 +2,22 @@
 
 Port of ``wholegraph_tpu/models/conv.py``: :class:`FullGraph`, the
 full-graph aggregation ``_fg_spmm`` and the fused GAT message passing
-``_fg_gat_windowed``, and the convs :class:`SAGEConv` (sampled and
-full-graph), :class:`GCNConv` and :class:`GATConv` (full-graph). On a full
-graph, sum and mean aggregations run kernel G (:class:`~wholegraph_tpu_torch.
-ops.spmm_kernels.CsrSpmm`, whose backward is G on the transposed CSR and,
-for GAT's attention weights, kernel H). The sampled branches of GCN and GAT,
-GCN's ``degree_mode`` and RGCN are not ported yet.
+``_fg_gat_windowed``, and the convs :class:`SAGEConv`, :class:`GCNConv`,
+:class:`GATConv` and :class:`RGCNConv`, each on sampled blocks and on a
+full graph. On a sampled block, sum and mean aggregations run kernel D
+(``_hop_reduce``) and neighbour rows come through ``padded_gather_neighbors``
+(kernel A); on a full graph, sum and mean aggregations run kernel G
+(:class:`~wholegraph_tpu_torch.ops.spmm_kernels.CsrSpmm`, whose backward is G
+on the transposed CSR and, for GAT's attention weights, kernel H). Where
+the JAX package leaves the math to XLA (the sampled GAT's logits and
+softmax, RGCN's one-hot einsums and segment sums), the port uses plain
+PyTorch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -22,7 +27,7 @@ from torch import nn
 from ..graph.structure import HopSubgraph
 from ..ops import spmm as S
 from ..ops.spmm_kernels import CsrSpmm, transpose_csr
-from ..utils.error import NotSupported, check_input
+from ..utils.error import check_input
 
 
 @dataclasses.dataclass
@@ -33,7 +38,8 @@ class FullGraph:
 
     Built directly from a COO (``row_ptr=None``) the graph derives
     ``row_ptr`` from ``edge_dst``, which must then be sorted;
-    ``GraphStructure.to_full_graph`` passes its own CSR. ``window`` and
+    ``GraphStructure.to_full_graph`` passes its own CSR.
+    ``edge_type`` [E] int32 holds each edge's relation id (RGCN). ``window`` and
     ``edge_cap`` record the JAX package's tile plan where
     ``to_full_graph(windowed=True)`` found one feasible; kernel G needs no
     plan, so they change no route. :meth:`transposed` builds the transposed
@@ -42,6 +48,7 @@ class FullGraph:
     edge_src: torch.Tensor
     edge_dst: torch.Tensor
     num_nodes: int
+    edge_type: Optional[torch.Tensor] = None
     row_ptr: Optional[torch.Tensor] = None
     window: Optional[int] = None
     edge_cap: Optional[int] = None
@@ -50,8 +57,9 @@ class FullGraph:
 
     def __post_init__(self):
         E, n = self.edge_src.shape[0], int(self.num_nodes)
-        check_input(self.edge_src.dim() == 1 and self.edge_dst.shape == (E,),
-                    "edge_src and edge_dst must be [E]")
+        check_input(self.edge_src.dim() == 1 and self.edge_dst.shape == (E,)
+                    and (self.edge_type is None or self.edge_type.shape == (E,)),
+                    "edge_src, edge_dst and edge_type must be [E]")
         if self.row_ptr is None:
             dst = self.edge_dst
             check_input(E == 0 or (bool((dst[1:] >= dst[:-1]).all())
@@ -120,11 +128,6 @@ def _fg_gat_windowed(g: FullGraph, featv: torch.Tensor, e_src_n: torch.Tensor,
     return out
 
 
-def _not_ported(conv: str) -> None:
-    raise NotSupported(f"{conv} on a sampled HopSubgraph is not ported yet "
-                       "(only the full-graph branch)")
-
-
 def _hop_reduce(x: torch.Tensor, g: HopSubgraph, reduce: str) -> torch.Tensor:
     """Sampled-block aggregation (``conv.py:195-210``): a hop that carries a
     windowed plan (``MultilayerSample.with_windowed_agg``) goes through
@@ -164,30 +167,74 @@ class SAGEConv(nn.Module):
 
 class GCNConv(nn.Module):
     """GCN conv with the symmetric ``D^-1/2 A D^-1/2`` normalisation and an
-    implicit self loop, on a :class:`FullGraph`: ``h = x @ W``, ``out =
-    (Σ_{e into d} h[s] / sqrt(deg_s) + h[d] / sqrt(deg_d)) / sqrt(deg_d)``
-    with ``deg = in-degree + 1``, plus ``bias``."""
+    implicit self loop (``conv.py:243-305``): ``h = x @ W``, ``out =
+    (Σ_{s → d} h[s] / sqrt(deg_s) + h[d] / sqrt(deg_d)) / sqrt(deg_d)`` plus
+    ``bias``, with ``deg`` counting the self loop.
 
-    def __init__(self, in_dim: int, out_dim: int, bias: bool = True, device=None, dtype=None):
+    On a :class:`FullGraph`, ``deg`` is the in-degree + 1. On a sampled
+    :class:`HopSubgraph`, ``degree_mode`` picks the degrees:
+
+    * ``"block"``: the block's own (DGL GraphConv block semantics): a
+      target's valid slots + 1, and each source row's count of valid slots
+      that name it, + 1 for the target rows (the prefix of ``x``);
+    * ``"true"``: the graph's, from ``HopSubgraph.node_degree``
+      (``multilayer_sample(with_degrees=True)``; without it the conv raises
+      ``InvalidInput``): with fanout >= the largest degree the sampled
+      output equals the full-graph pass;
+    * ``"auto"``: true degrees where the hop carries them, else block.
+
+    The sampled sum is ``_hop_reduce``: kernel D on the card."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True, degree_mode: str = "auto",
+                 device=None, dtype=None):
         super().__init__()
+        check_input(degree_mode in ("auto", "block", "true"),
+                    f"degree_mode {degree_mode!r} is 'auto', 'block' or 'true'")
+        self.degree_mode = degree_mode
         self.proj = nn.Linear(in_dim, out_dim, bias=False, device=device, dtype=dtype)
         self.bias = (nn.Parameter(torch.zeros(out_dim, device=device, dtype=dtype))
                      if bias else None)
 
     def forward(self, x: torch.Tensor, g: Adj) -> torch.Tensor:
-        if isinstance(g, HopSubgraph):
-            _not_ported("GCNConv")
         h = self.proj(x)
-        inv = torch.rsqrt(g.in_degree.to(h.dtype) + 1.0)[:, None]
-        out = (_fg_spmm(g, h * inv, "sum") + h * inv) * inv
+        if isinstance(g, HopSubgraph):
+            out = self._sampled(h, g)
+        else:
+            inv = torch.rsqrt(g.in_degree.to(h.dtype) + 1.0)[:, None]
+            out = (_fg_spmm(g, h * inv, "sum") + h * inv) * inv
         return out if self.bias is None else out + self.bias
+
+    def _sampled(self, h: torch.Tensor, g: HopSubgraph) -> torch.Tensor:
+        B, U = g.num_targets, h.shape[0]
+        check_input(self.degree_mode != "true" or g.node_degree is not None,
+                    "degree_mode='true' needs HopSubgraph.node_degree; sample with "
+                    "multilayer_sample(with_degrees=True)")
+        if self.degree_mode != "block" and g.node_degree is not None:
+            inv_src = torch.rsqrt((g.node_degree.to(h.dtype) + 1.0).clamp(min=1.0))
+            inv_dst = inv_src[:B]
+        else:
+            # masked slots go to an extra row U that is cut off (JAX's drop mode)
+            flat = torch.where(g.mask, g.nbr_idx, U).reshape(-1).long()
+            deg_src = h.new_zeros(U + 1).index_add_(0, flat, h.new_ones(flat.shape[0]))[:U]
+            deg_src[:B] += 1.0
+            inv_src = torch.rsqrt(deg_src.clamp(min=1.0))
+            inv_dst = torch.rsqrt((g.mask.sum(dim=1) + 1).to(h.dtype))
+        hs = h * inv_src[:, None]
+        return (_hop_reduce(hs, g, "sum") + hs[:B]) * inv_dst[:, None]
 
 
 class GATConv(nn.Module):
-    """Multi-head GAT conv (CuGraphGATConv analog, gat_conv.py:22-102) on a
-    :class:`FullGraph`: ``out_dim`` per head, ``num_heads`` heads,
-    concatenated (``concat_heads``) or averaged. Parameters: ``proj``
-    (no bias), ``attn_src`` and ``attn_dst`` [H, out_dim]."""
+    """Multi-head GAT conv (CuGraphGATConv analog, gat_conv.py:22-102;
+    ``conv.py:308-394``): ``out_dim`` per head, ``num_heads`` heads,
+    concatenated (``concat_heads``) or averaged. Parameters: ``proj`` (no
+    bias), ``attn_src`` and ``attn_dst`` [H, out_dim].
+
+    On a sampled :class:`HopSubgraph` (with ``add_self_loop`` the target's
+    own row joins its slots as column 0): the neighbours' projected rows
+    [B, K', H·D] come through ``padded_gather_neighbors`` (kernel A, clip),
+    then the logits, ``padded_softmax`` over the valid slots and the
+    weighted sum, in plain PyTorch as they are plain XLA in JAX. On a
+    :class:`FullGraph`: ``_fg_gat_windowed``."""
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int = 1,
                  negative_slope: float = 0.2, add_self_loop: bool = True,
@@ -203,14 +250,83 @@ class GATConv(nn.Module):
         nn.init.xavier_uniform_(self.attn_dst)
 
     def forward(self, x: torch.Tensor, g: Adj) -> torch.Tensor:
-        if isinstance(g, HopSubgraph):
-            _not_ported("GATConv")
         H, D = self.num_heads, self.out_dim
-        featv = self.proj(x).view(-1, H, D)
-        e_src_n = torch.einsum("nhd,hd->nh", featv, self.attn_src)
-        e_dst_n = torch.einsum("nhd,hd->nh", featv, self.attn_dst)
-        out = _fg_gat_windowed(g, featv, e_src_n, e_dst_n, negative_slope=self.negative_slope,
-                               add_self_loop=self.add_self_loop)
+        feat = self.proj(x)
+        featv = feat.view(-1, H, D)
+        if isinstance(g, HopSubgraph):
+            B = g.num_targets
+            e_dst = torch.einsum("bhd,hd->bh", featv[:B], self.attn_dst)
+            nbr, mask = g.nbr_idx, g.mask
+            if self.add_self_loop:
+                self_idx = torch.arange(B, dtype=nbr.dtype, device=nbr.device)[:, None]
+                nbr = torch.cat([self_idx, nbr], dim=1)
+                mask = torch.cat([torch.ones_like(mask[:, :1]), mask], dim=1)
+            nfeat = S.padded_gather_neighbors(feat, nbr).view(B, -1, H, D)  # [B, K', H, D]
+            e_src = torch.einsum("bkhd,hd->bkh", nfeat, self.attn_src)
+            logits = F.leaky_relu(e_src + e_dst[:, None, :], self.negative_slope)
+            alpha = S.padded_softmax(logits, mask[..., None].expand_as(logits), dim=1)
+            out = (alpha[..., None] * nfeat).sum(dim=1)  # [B, H, D]
+        else:
+            e_src_n = torch.einsum("nhd,hd->nh", featv, self.attn_src)
+            e_dst_n = torch.einsum("nhd,hd->nh", featv, self.attn_dst)
+            out = _fg_gat_windowed(g, featv, e_src_n, e_dst_n,
+                                   negative_slope=self.negative_slope,
+                                   add_self_loop=self.add_self_loop)
         if self.concat_heads:
             return out.reshape(out.shape[0], H * D)
         return out.mean(dim=1)
+
+
+class RGCNConv(nn.Module):
+    """Relational GCN conv (``conv.py:397-442``): the mean of each
+    relation's neighbours through that relation's weight, summed over the
+    relations, plus a self transform: ``out = Σ_r mean_{s ∈ N_r(d)} x[s] @
+    W_r + x[d] @ W_self + bias``. Parameters: ``w_rel`` [R, Din, Dout], a
+    bias-free ``self`` linear layer, ``bias``.
+
+    ``edge_type`` gives each slot's (on a :class:`HopSubgraph`, [B, K]) or
+    each edge's (on a :class:`FullGraph`, [E]) relation; the full graph's
+    own ``edge_type`` serves when it is None. On a hop the neighbour rows
+    come through ``padded_gather_neighbors`` (kernel A), then a one-hot of
+    the types times the mask, per-relation counts ``max(Σ, 1)`` and two
+    einsums. On a full graph the per-relation segment mean runs in plain
+    PyTorch (``index_add_`` into ``N·R`` segments), holding an [E, Dout]
+    intermediate: it fits the card only at small sizes."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_relations: int, bias: bool = True,
+                 device=None, dtype=None):
+        super().__init__()
+        check_input(num_relations > 0, "RGCNConv needs num_relations > 0")
+        self.num_relations = num_relations
+        self.w_rel = nn.Parameter(torch.empty(num_relations, in_dim, out_dim, device=device,
+                                              dtype=dtype))
+        limit = math.sqrt(6.0 / (num_relations * (in_dim + out_dim)))  # flax glorot_uniform
+        nn.init.uniform_(self.w_rel, -limit, limit)
+        self.self = nn.Linear(in_dim, out_dim, bias=False, device=device, dtype=dtype)
+        self.bias = (nn.Parameter(torch.zeros(out_dim, device=device, dtype=dtype))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor, g: Adj,
+                edge_type: Optional[torch.Tensor] = None) -> torch.Tensor:
+        R = self.num_relations
+        rel = torch.arange(R, device=x.device)
+        if isinstance(g, HopSubgraph):
+            check_input(edge_type is not None, "RGCNConv on a HopSubgraph needs edge_type")
+            nfeat = S.padded_gather_neighbors(x, g.nbr_idx)  # [B, K, Din]
+            # one-hot by comparison: a type outside [0, R) gives a zero row, as jax.nn.one_hot
+            onehot = (edge_type[..., None] == rel).to(x.dtype) * g.mask[..., None]
+            cnt = onehot.sum(dim=1).clamp(min=1.0)  # [B, R]
+            agg = torch.einsum("bkr,bkd->brd", onehot, nfeat) / cnt[..., None]
+            out = torch.einsum("brd,rde->be", agg, self.w_rel) + self.self(x[: g.num_targets])
+        else:
+            et = edge_type if edge_type is not None else g.edge_type
+            check_input(et is not None, "RGCNConv on a FullGraph needs edge_type")
+            N, E = g.num_nodes, g.edge_src.shape[0]
+            h = torch.einsum("nd,rde->nre", x, self.w_rel).reshape(N * R, -1)  # [N·R, Dout]
+            et = et.long()
+            msgs = h.index_select(0, g.edge_src.long() * R + et)  # [E, Dout]
+            seg = g.edge_dst.long() * R + et
+            summed = S.segment_sum(msgs, seg, N * R).view(N, R, -1)
+            cnt = S.segment_sum(x.new_ones(E), seg, N * R).view(N, R, 1)
+            out = (summed / cnt.clamp(min=1.0)).sum(dim=1) + self.self(x)
+        return out if self.bias is None else out + self.bias
