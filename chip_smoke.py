@@ -237,12 +237,19 @@ the examples under the launcher and the multichip dry run. In order:
     parameters under SGD and 5 under LazyAdam held against the port's world-1 step on the
     concatenated 4 x 1,024 distinct centres (losses, dense parameters and
     the table's rows at 32,768 ids, within WORLD_TOL; the SGD table at
-    WORLD_SGD_LR); 8 timed steps with the stage split, rounds and
+    WORLD_SGD_LR); 5 timed steps with the stage split, rounds and
     launches a rank (A, B, C, D and J on every rank, I in the store); the
     exchange gather split into bucket, ids out, serve, rows back,
     un-permute and the count of ids left, as ``ops.gather.EXCHANGE_MARK``
-    hears them inside the call; NCCL at world 1 (one
-    ``all_reduce``, one ``all_to_all_single``).
+    hears them inside the call; one world-4 epoch (``train.train_epoch``
+    of WORLD_STEPS LazyAdam steps on the example's stacked batches, each
+    rank its columns by ``rank_share``) beside as many eager
+    ``train_step``s on a second state from the same seed, both with
+    PyTorch's deterministic algorithms: losses, each rank's table, m and v
+    shards and the dense parameters bit-equal, the epoch's ms a step beside
+    the eager median, its launches counted (A, B, C, D and J on every
+    rank); NCCL at world 1 (one ``all_reduce``, one
+    ``all_to_all_single``).
     Times there are gloo's through the host over one card;
 20. ``[sharded_fg]``: the sharded full graph at world 4, four ranks on
     card 0 over gloo after the parent computed the world-1 references on
@@ -273,7 +280,7 @@ the examples under the launcher and the multichip dry run. In order:
     weighted hop by hop within K's near-tie rule; J's serves of 4-byte rows
     bit-equal to its plain version; a sharded row_ptr beside the whole col
     bit-equal too, C's fetch ``sample_cols`` a launch a hop, each held
-    against its plain version; the sample's ms both ways; 3 SGD steps over
+    against its plain version; the sample's ms both ways; 2 SGD steps over
     either graph bit-equal, with PyTorch's deterministic algorithms); the
     host tier at ``host_cache_ratio=0.25`` (pinned shards of 3 x
     512,000,000 bytes a rank): 5 SGD steps (table and dense parameters)
@@ -281,14 +288,16 @@ the examples under the launcher and the multichip dry run. In order:
     version, 5 timed steps split by stage, coherence on every rank, E's
     and F's link bytes; the hot cache (the top-degree 20 % replicated on
     every rank): ``gather_with_cache`` bit-equal to the store's gather at
-    ``cold_capacity_factor`` 0.5 and 0.1 (waves and rounds counted), 5
+    ``cold_capacity_factor`` 0.5 and 0.1 (waves and rounds counted), 3
     cached steps bit-equal to uncached; ``HeteroTrainConfig()``: 3 steps
     against world 1 (WORLD_TOL; the paper rows within WT_HETERO_ROWS_TOL,
     beyond which a row left unchanged lies), timed and split, the rounds of each type's exchange with the
     off-type slots as -1 and as 0, peak memory; then ``link_prediction``,
     ``hetero_node_classification`` and ``node_classification
-    --cache-type local_device`` at ``--smoke`` under the launcher at
-    world 4 (``--device cuda:0 --backend gloo``, side by side), and
+    --cache-type local_device --train-embedding`` at ``--smoke`` under
+    the launcher at world 4 (``--device cuda:0 --backend gloo``, side by
+    side), the last also with ``--scan-epoch``, whose epoch losses and
+    ``[TEST]`` line must be those of the run without it, and
     ``entry.dryrun_multichip(4, backend="gloo", device="cuda:0")`` with
     its six lines;
 
@@ -299,7 +308,8 @@ wrapper calls, and G's and H's ``launches_per_call`` the kernels one
 bench call launched, as torch.profiler saw them, which must be G's span,
 window and rows kernels and H's two; every kernel's launches in each
 example run; A's entry also carries the ``[hot_cache]`` and ``[io]``
-readings, and A-D, I and J each rank's launches in ``[world]``; every
+readings, and A-D, I and J each rank's launches in ``[world]``'s timed
+steps, store and epoch; every
 kernel each rank's launches in ``[sharded_fg]``, and G's entry its checks
 on the local CSRs and that phase's readings; every kernel each rank's
 launches in ``[world_tier]`` (C's fetch route its own), A, B, C's fetch,
@@ -355,6 +365,7 @@ from wholegraph_tpu_torch.embedding import (SGD, Embedding, HostEmbedding,  # no
 from wholegraph_tpu_torch.embedding import embedding as emb_mod  # noqa: E402
 from wholegraph_tpu_torch.embedding import host_embedding as host_mod  # noqa: E402
 from wholegraph_tpu_torch.embedding.host_embedding import bench_host_gather  # noqa: E402
+from wholegraph_tpu_torch.examples.node_classification import rank_share  # noqa: E402
 from wholegraph_tpu_torch.graph import GraphStructure, HeteroFeatureStore  # noqa: E402
 from wholegraph_tpu_torch.models import GATConv, HomoGNN  # noqa: E402
 from wholegraph_tpu_torch.ops import KERNELS  # noqa: E402
@@ -3655,8 +3666,8 @@ def scan_epoch_phase(cfg, smi):
 # ---------------------------------------------------------------------------
 
 WORLD = 4                 # ranks, each a process, all on card 0
-WORLD_STEPS = 5           # steps checked against world 1, under SGD and then LazyAdam
-WORLD_TIMED = 8           # timed world-4 steps (LazyAdam, the main path's optimizer)
+WORLD_STEPS = 5           # steps checked against world 1, under SGD and then LazyAdam; the epoch's
+WORLD_TIMED = 5           # timed world-4 steps (LazyAdam, the main path's optimizer)
 WORLD_CHECK_IDS = 32768   # touched rows of the table compared with world 1
 WORLD_SEED = 11           # build_synthetic's seed on both sides
 STORE_SEED = 12           # the store check's random 2,000,000 x 256 table
@@ -3681,6 +3692,12 @@ WORLD_SGD_LR = 100.0
 # beyond 1e-6 (9.4e-6 measured there)
 WORLD_TOL = {"loss_rtol": 1e-5, "dense_atol": 1e-4, "grad_rel": 1e-4, "grad_abs": 1e-5,
              "sgd_ulps": 2, "sgd_sensitivity": 0.5, "lazy_atol": 4e-4, "lazy_share": 1e-4}
+
+
+# the world-4 epoch against its eager steps: bit for bit under deterministic algorithms, or,
+# where an op has no deterministic form (named by PyTorch's warning), within WORLD_TOL's
+# LazyAdam bounds (losses loss_rtol, dense parameters dense_atol, table and slots lazy_atol)
+EPOCH_PARTS = ("table", "m", "v")
 
 
 def world_config(cfg, opt):
@@ -3959,7 +3976,60 @@ def world_rank(rank, world, centers, check_ids):
                     "peak_bytes": torch.cuda.max_memory_allocated(dev)}
     ml = st.graph.multilayer_sample(centers[0][rank].to(dev), cfg.fanouts, seed=0)
     out["split"] = world_exchange_split(st.embedding, ml.unique_gids)
+    del st, ml
+    torch.cuda.empty_cache()
+    out["epoch"] = world_epoch(cfg, mesh, centers, rank, world)
     return out
+
+
+def world_epoch(cfg, mesh, centers, rank, world):
+    """One world-4 epoch of WORLD_STEPS LazyAdam steps (``train.train_epoch``
+    on the stacked global batches, this rank's columns by the example's
+    ``rank_share``, seeds from the step's index) beside as many eager
+    ``train_step``s on a second state from the same seed, both with
+    deterministic algorithms: the losses, this rank's table, m and v shards
+    and the dense parameters compared on the card, the eager steps' wall
+    ms each and the epoch's, and the launches of the epoch alone."""
+    import warnings
+
+    dev = mesh.device
+    first = 2 * WORLD_STEPS + WORLD_TIMED
+    stacked = centers[first:first + WORLD_STEPS].reshape(WORLD_STEPS, -1).numpy()
+    cs = torch.from_numpy(np.ascontiguousarray(rank_share(stacked, world, rank))).to(dev)
+    with warnings.catch_warnings(record=True) as caught, deterministic(True):
+        warnings.simplefilter("always")
+        eager = wt.build_synthetic(cfg, device=dev, seed=WORLD_SEED, mesh=mesh)
+        scanned = wt.build_synthetic(cfg, device=dev, seed=WORLD_SEED, mesh=mesh)
+        ys = eager.labels[cs.long()]
+        eager_ms, eager_losses = [], []
+        for s in range(WORLD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager_losses.append(float(wt.train_step(eager, cs[s], ys[s], seed=first + s)))
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = wt.train.train_epoch(scanned, cs, ys, torch.arange(first, first + WORLD_STEPS))
+        losses = losses.tolist()  # the host's one read of the epoch
+        epoch_s = time.perf_counter() - t0
+        launches = read_launches()
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    a, b = eager.embedding, scanned.embedding
+    shards = {"table": (a.table, b.table), **{s: (a.slots[s], b.slots[s]) for s in a.slots}}
+    equal = {k: bool(torch.equal(x, y)) for k, (x, y) in shards.items()}
+    err = {k: max_err(x, y) for k, (x, y) in shards.items()}
+    dense = {k: max_err(v, b_v) for (k, v), b_v in zip(eager.model.state_dict().items(),
+                                                        scanned.model.state_dict().values())}
+    equal["dense"] = all(v == 0.0 for v in dense.values())
+    equal["losses"] = losses == eager_losses
+    return {"losses": losses, "eager_losses": eager_losses, "equal": equal, "max_abs": err,
+            "dense_abs": max(dense.values()), "nondeterministic": nondet,
+            "epoch_graph": scanned.epoch_graph is not None,
+            "steps": (a.step, b.step), "finite": bool(torch.isfinite(b.table).all()),
+            "eager_ms": eager_ms, "epoch_ms_per_step": epoch_s * 1e3 / WORLD_STEPS,
+            "launches": launches}
 
 
 def nccl_world1():
@@ -4044,7 +4114,7 @@ def world_phase(cfg, smi):
         f"below are gloo's over one card ({smi}), not NCCL's or NVLink's: they show nothing "
         f"of scaling over cards")
     t0 = time.perf_counter()
-    centers = world_centers(cfg, 2 * WORLD_STEPS + WORLD_TIMED, WORLD_SEED)
+    centers = world_centers(cfg, 3 * WORLD_STEPS + WORLD_TIMED, WORLD_SEED)
     refs = {opt: world1_reference(cfg, centers, opt, first)
             for opt, first in (("sgd", 0), ("lazy_adam", WORLD_STEPS))}
     log(f"[world] world-1 references (4 x {cfg.batch} centres a step, {WORLD_STEPS} steps each) "
@@ -4112,8 +4182,54 @@ def world_phase(cfg, smi):
         f"{json.dumps(summary['exchange_split_ms'])}")
     log(f"[world] launches a rank over the timed steps: {json.dumps(summary['launches_step'])}; "
         f"in the store checks: {json.dumps(summary['launches_store'])}")
+    summary["epoch"] = check_world_epoch([o["epoch"] for o in res], smi)
+    summary["launches_epoch"] = {r: dict(o["epoch"]["launches"]) for r, o in enumerate(res)}
     summary["nccl_world1"] = nccl_world1()
     log(f"[world] NCCL at world 1: {json.dumps(summary['nccl_world1'])}")
+    return summary
+
+
+def check_world_epoch(outs, smi):
+    """The world-4 epoch of every rank against its eager steps: bit for bit,
+    or within WORLD_TOL where PyTorch named an op without a deterministic
+    form; the launches of A, B, C, D and J on every rank; no graph kept.
+    Logs and returns the readings."""
+    for r, o in enumerate(outs):
+        require(not o["epoch_graph"], f"[world] rank {r}: the world-4 epoch kept a graph")
+        require(o["steps"] == (WORLD_STEPS, WORLD_STEPS) and o["finite"],
+                f"[world] rank {r}: the epoch's steps or table are wrong: {o['steps']}")
+        require(all(o["launches"][k] > 0 for k in WORLD_PATH_KERNELS),
+                f"[world] rank {r}: a kernel of the epoch never ran: {o['launches']}")
+        require(o["losses"] == outs[0]["losses"], f"[world] rank {r}: the ranks' losses differ")
+        if not all(o["equal"].values()):
+            require(o["nondeterministic"], f"[world] rank {r}: the epoch differs from its eager "
+                                           f"steps with deterministic algorithms: {o['equal']}")
+            loss_err = max(abs(x - y) / abs(y) for x, y in zip(o["losses"], o["eager_losses"]))
+            require(loss_err <= WORLD_TOL["loss_rtol"]
+                    and o["dense_abs"] <= WORLD_TOL["dense_atol"]
+                    and max(o["max_abs"].values()) <= WORLD_TOL["lazy_atol"],
+                    f"[world] rank {r}: the epoch lies beyond WORLD_TOL of its eager steps "
+                    f"(ops without a deterministic form: {o['nondeterministic']}): "
+                    f"{json.dumps({k: o[k] for k in ('max_abs', 'dense_abs')})}, losses "
+                    f"{loss_err}")
+    o = outs[0]
+    summary = {
+        "bit_equal": [all(x["equal"].values()) for x in outs],
+        "equal": [x["equal"] for x in outs], "max_abs": [x["max_abs"] for x in outs],
+        "dense_abs": [x["dense_abs"] for x in outs],
+        "nondeterministic": sorted({n for x in outs for n in x["nondeterministic"]}),
+        "losses": o["losses"], "eager_ms": o["eager_ms"],
+        "eager_median_ms": statistics.median(o["eager_ms"]),
+        "epoch_ms_per_step": o["epoch_ms_per_step"], "card": smi}
+    log(f"[world] epoch: train_epoch of {WORLD_STEPS} LazyAdam steps at world {WORLD} (each rank "
+        f"its columns of the stacked batches) against {WORLD_STEPS} eager train_steps from the "
+        f"same seed, deterministic algorithms: bit-equal on every rank "
+        f"{summary['bit_equal']} (losses, table, m, v, dense parameters; ops without a "
+        f"deterministic form: {summary['nondeterministic'] or 'none'}); losses "
+        f"{summary['losses']}; rank 0 wall ms a step, gloo over one card ({smi}): epoch "
+        f"{summary['epoch_ms_per_step']:.3f}, eager median {summary['eager_median_ms']:.3f} "
+        f"(each {[round(t, 3) for t in o['eager_ms']]}); launches a rank over the epoch "
+        f"{json.dumps([{k: v for k, v in x['launches'].items() if v} for x in outs])}")
     return summary
 
 
@@ -4474,9 +4590,9 @@ def sharded_fg_phase(smi, spec=None):
 # ---------------------------------------------------------------------------
 
 WT_SEED = 15              # build_synthetic's seed of the sharded-CSR and hot-cache states
-WT_CSR_STEPS = 3          # SGD steps over the sharded CSR against the same over the replicated
+WT_CSR_STEPS = 2          # SGD steps over the sharded CSR against the same over the replicated
 WT_HOST_STEPS = 5         # timed LazyAdam host-tier steps (WORLD_STEPS SGD ones held to world 1)
-WT_CACHE_STEPS = 5        # steps with the hot cache against as many without it
+WT_CACHE_STEPS = 3        # steps with the hot cache against as many without it
 WT_HOT_RATIO = 0.2        # the hot set by degree (the examples' --cache-ratio default)
 WT_COLD = (0.5, 0.1)      # gather_with_cache's cold_capacity_factor: its default, and 3+ waves
 WT_HETERO_STEPS = 3       # hetero steps at HeteroTrainConfig() against world 1
@@ -4493,10 +4609,26 @@ WT_HETERO_ROWS_TOL = 2e-6
 # runs in its own processes
 WT_PATH_KERNELS = ("row_gather", "row_scatter", "row_gather_masked", "host_gather",
                    "host_scatter", "sample_hop_uniform", "neighbor_agg", "sample_cols")
-WT_EXAMPLES = (("link_prediction", [], "[TEST] pairwise-rank acc"),
-               ("hetero_node_classification", ["--train-embedding"], "[TEST] loss"),
-               ("node_classification", ["--cache-type", "local_device", "--train-embedding"],
-                "[TEST] loss"))
+# tag, example, its options beyond --smoke, rank 0's test line; node_classification runs
+# with and without --scan-epoch, and the two must print the same epoch losses and test line:
+# both run with PyTorch's deterministic algorithms (WT_DETERMINISTIC), since two runs that
+# sum by atomics may round apart in a printed digit
+WT_NC_ARGS = ["--epochs", "2", "--cache-type", "local_device", "--train-embedding"]
+WT_EXAMPLES = (("link_prediction", "link_prediction", ["--epochs", "1"],
+                "[TEST] pairwise-rank acc"),
+               ("hetero_node_classification", "hetero_node_classification",
+                ["--epochs", "1", "--train-embedding"], "[TEST] loss"),
+               ("node_classification", "node_classification", WT_NC_ARGS, "[TEST] loss"),
+               ("node_classification_scan", "node_classification",
+                WT_NC_ARGS + ["--scan-epoch"], "[TEST] loss"))
+WT_DETERMINISTIC = ("node_classification", "node_classification_scan")
+# the script each rank of those runs: the example's module as ``python -m`` runs it, with
+# PyTorch's deterministic algorithms
+WT_DETERMINISTIC_SCRIPT = """import runpy
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+runpy.run_module("wholegraph_tpu_torch.examples.{module}", run_name="__main__", alter_sys=True)
+"""
 DRYRUN_LINES = ("one train step OK", "host-tier train step OK", "halo-partitioned eval OK",
                 "hetero train step OK", "weighted-fused sample OK", "hierarchical gather OK")
 
@@ -4853,40 +4985,58 @@ def hetero_world1():
 
 
 def wt_examples():
-    """The three examples under the launcher at world 4, every rank on card
-    0 over gloo (``--device cuda:0 --backend gloo``), the three launches at
-    once (12 processes on the card): exit 0, rank 0's contract lines."""
+    """The three examples under the launcher at world 4, node_classification
+    also with ``--scan-epoch``, every rank on card 0 over gloo (``--device
+    cuda:0 --backend gloo``), the four launches at once (16 processes on
+    the card): exit 0, rank 0's contract lines, and the scanned run's epoch
+    losses and test line those of the run without the flag, both run with
+    deterministic algorithms (WT_DETERMINISTIC)."""
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     procs = {}
     t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="wg_launch_")
     try:
-        for module, extra, _ in WT_EXAMPLES:
+        for tag, module, extra, _ in WT_EXAMPLES:
+            target = ["-m", f"wholegraph_tpu_torch.examples.{module}"]
+            run_env = env
+            if tag in WT_DETERMINISTIC:
+                target = [os.path.join(tmp.name, f"{module}_deterministic.py")]
+                with open(target[0], "w") as f:
+                    f.write(WT_DETERMINISTIC_SCRIPT.format(module=module))
+                run_env = dict(env, CUBLAS_WORKSPACE_CONFIG=":4096:8")
             cmd = [sys.executable, "-m", "wholegraph_tpu_torch.launch", "--nproc", str(WORLD),
-                   "--device", "cuda:0", "--backend", "gloo", "-m",
-                   f"wholegraph_tpu_torch.examples.{module}", "--", "--smoke", "--epochs", "1",
-                   *extra]
-            procs[module] = (cmd, subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                                   stderr=subprocess.PIPE, text=True))
+                   "--device", "cuda:0", "--backend", "gloo", *target, "--", "--smoke", *extra]
+            procs[tag] = (cmd, subprocess.Popen(cmd, env=run_env, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True))
         outs = {m: p.communicate(timeout=600) + (p.returncode,) for m, (_, p) in procs.items()}
     finally:
         for _, p in procs.values():  # however this ends, no launch outlives it
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        tmp.cleanup()
     secs = time.perf_counter() - t0
     out = {}
-    for module, _, line in WT_EXAMPLES:
-        text, err, rc = outs[module]
-        require(rc == 0, f"[world_tier] {module} under the launcher failed ({rc}):\n"
+    for tag, _, _, line in WT_EXAMPLES:
+        text, err, rc = outs[tag]
+        require(rc == 0, f"[world_tier] {tag} under the launcher failed ({rc}):\n"
                          f"{text[-3000:]}\n{err[-3000:]}")
         test = re.search(re.escape(line) + r".*", text)
         require(test is not None and text.count(line) == 1 and "[TRAIN_TIME]" in text,
-                f"[world_tier] {module}: rank 0's contract lines missing:\n{text}")
-        cmd = procs[module][0]
-        out[module] = {"argv": cmd[cmd.index("--") + 1:], "test": test.group(0)}
-        log(f"[world_tier] {module} under the launcher at world {WORLD} on cuda:0 (gloo): "
+                f"[world_tier] {tag}: rank 0's contract lines missing:\n{text}")
+        cmd = procs[tag][0]
+        out[tag] = {"argv": cmd[cmd.index("--") + 1:], "test": test.group(0),
+                    "epochs": re.findall(r"\[EPOCH_TIME\] [0-9.]+ s (epoch .*)", text)}
+        log(f"[world_tier] {tag} under the launcher at world {WORLD} on cuda:0 (gloo): "
             f"{test.group(0)}")
-    log(f"[world_tier] the three launches, side by side, in {secs:.2f} s")
+    eager, scan = out["node_classification"], out["node_classification_scan"]
+    require(eager["epochs"] and (eager["epochs"], eager["test"]) == (scan["epochs"], scan["test"]),
+            f"[world_tier] node_classification --scan-epoch at world {WORLD} printed "
+            f"{scan['epochs']} {scan['test']!r}, without the flag {eager['epochs']} "
+            f"{eager['test']!r}")
+    log(f"[world_tier] node_classification --scan-epoch at world {WORLD}: the epoch losses and "
+        f"test line of the run without it: {json.dumps(scan['epochs'])}")
+    log(f"[world_tier] the four launches, side by side, in {secs:.2f} s")
     out["seconds"] = secs
     return out
 
@@ -5302,6 +5452,9 @@ def main():
                                     for r, v in world["launches_step"].items()}
         e["launches_world_store"] = {r: v.get(e["name"], 0)
                                      for r, v in world["launches_store"].items()}
+        # the sixteenth slice: each rank's launches over [world]'s epoch
+        e["launches_world_epoch"] = {r: v.get(e["name"], 0)
+                                     for r, v in world["launches_epoch"].items()}
         # the thirteenth slice: each rank's launches over [sharded_fg]'s halo and per-edge paths
         e["launches_sharded_fg"] = {r: v.get(e["name"], 0) for r, v in sfg["launches"].items()}
     gk = next(e for e in out if e["name"] == S.CSR_SPMM.name)  # G on each rank's local CSR

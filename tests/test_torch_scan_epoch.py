@@ -281,9 +281,12 @@ def test_in_place_cache_forms_are_the_functional_ones():
 
 
 def test_epoch_refusals(monkeypatch):
-    """World > 1 and the host tier raise naming their ROADMAP item (the
-    apply refuses ``unique_chunk`` beside corrections: above); a CUDA graph
-    needs a capturable dense Adam."""
+    """The host tier raises naming its ROADMAP item (the apply refuses
+    ``unique_chunk`` beside corrections: above); a CUDA graph needs a
+    capturable dense Adam. World > 1 is refused no more: there the epoch
+    runs the step once a batch, its row, seed and corrections read on the
+    device, with a dense Adam that is not capturable and no graph kept
+    (the real world-4 runs are in ``test_torch_scan_epoch_world.py``)."""
     cfg = _cfg()
     host = build_synthetic(cfg, device="cpu", seed=0, host_cache_ratio=0.25)
     c = torch.zeros((S, cfg.batch), dtype=torch.int32)
@@ -295,9 +298,23 @@ def test_epoch_refusals(monkeypatch):
     T.check_scannable(st, graphed=False)
     st.dense_opt = torch.optim.Adam(st.model.parameters(), lr=cfg.lr, capturable=True)
     T.check_scannable(st, graphed=True)
+    st.dense_opt = torch.optim.Adam(st.model.parameters(), lr=cfg.lr)
     monkeypatch.setattr(Embedding, "world", property(lambda self: 4))
-    with pytest.raises(InvalidInput, match="world 1.*Queue 4 item 15"):
-        T.train_epoch(st, c, c, range(S))
+    calls = []
+
+    def step(state, centers, labels, seed, generator=None, *, corrections=None):
+        calls.append((centers.clone(), int(seed), corrections.clone()))
+        return torch.tensor(float(len(calls)))
+
+    monkeypatch.setattr(T, "train_step", step)
+    c = torch.arange(S * cfg.batch, dtype=torch.int32).view(S, -1)
+    losses = T.train_epoch(st, c, c, torch.arange(S) + SEED0)
+    assert torch.equal(losses, torch.arange(1.0, S + 1))
+    assert [s for _, s, _ in calls] == list(range(SEED0, SEED0 + S))
+    assert all(torch.equal(ci, c[i]) for i, (ci, _, _) in enumerate(calls))
+    want = st.embedding.optimizer.step_table(range(1, S + 1), "cpu")
+    assert all(torch.equal(k, want[i]) for i, (_, _, k) in enumerate(calls))
+    assert st.epoch_graph is None and st.embedding.step == S
 
 
 def test_a_replaced_buffer_changes_what_the_graph_reads():
@@ -317,3 +334,32 @@ def test_a_replaced_buffer_changes_what_the_graph_reads():
     st.embedding.table = st.embedding.table.clone()
     assert T._reads(st, gen) != r1
     assert T._reads(st, torch.Generator()) != T._reads(st, gen)
+
+
+@pytest.mark.slow
+def test_scan_epoch_example_under_the_launcher():
+    """``node_classification --scan-epoch`` at world 4 under the launcher
+    (``--device cpu``: gloo), the table trained: each rank keeps its
+    columns of the stacked batches, so rank 0 prints the epoch losses and
+    the ``[TEST]`` line of the run without the flag."""
+    import os
+    import re
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lines = {}
+    for extra in ([], ["--scan-epoch"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "wholegraph_tpu_torch.launch", "--nproc", "4", "--device",
+             "cpu", "-m", "wholegraph_tpu_torch.examples.node_classification", "--", "--smoke",
+             "--epochs", "2", "--train-embedding", *extra], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root), capture_output=True, text=True, timeout=300)
+        out = proc.stdout
+        assert proc.returncode == 0, out + proc.stderr
+        assert "world 4" in out, out
+        # an epoch's line without its time, and the test line
+        lines[bool(extra)] = (re.findall(r"\[EPOCH_TIME\] [0-9.]+ s (epoch .*)", out)
+                              + re.findall(r"\[TEST\].*", out))
+        assert len(lines[bool(extra)]) == 3, out
+    assert lines[True] == lines[False]

@@ -34,7 +34,9 @@ world W with every activation row-sharded, over the halo-partitioned layout
 (:mod:`.graph.partitioned`) or per edge (:mod:`.models.sharded_eval`);
 the fifteenth the scanned epoch (:func:`.train.train_epoch`: one CUDA
 graph of the step, replayed once a batch, the sampler's seed and
-LazyAdam's corrections read on the card) and :mod:`.utils.perf`.
+LazyAdam's corrections read on the card) and :mod:`.utils.perf`; the
+sixteenth the scanned epoch at world W and the last public names of the
+JAX package.
 """
 
 from . import (config, embedding, entry, full_graph, graph, io, kernels, memory, models, ops,
@@ -44,8 +46,7 @@ from .full_graph import (FullGraphConfig, build_full_graph, clustered_csr, eval_
 from .memory import PartitionPlan, ShardedTable
 from .train import (HeteroTrainConfig, HeteroTrainState, SageTrainConfig, SageTrainState,
                     build_hetero, build_synthetic, hetero_train_step, train_epoch, train_step)
-
-__version__ = "0.1.0"
+from .version import __version__
 
 __all__ = [
     "config",

@@ -6,9 +6,7 @@ python torch/common_options.py:17-176), so a command line of the JAX
 package's examples runs the port's. The port adds one option,
 ``--device`` (default ``cuda``, or ``WHOLEGRAPH_TORCH_DEVICE`` when the
 launcher's ``--device cpu`` set it; ``cpu`` runs the kernels' plain
-versions).
-Options that the port's examples do not serve yet keep their names; the
-examples refuse them with a message naming their ROADMAP item.
+versions). The port's examples serve every option of the groups.
 """
 
 from __future__ import annotations

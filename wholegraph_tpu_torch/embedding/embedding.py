@@ -224,14 +224,15 @@ class Embedding:
     @staticmethod
     def from_filelist(filelist, dim: int, *, optimizer: Optional[SparseOptimizer] = None,
                       dtype="float32", expected_rows: Optional[int] = None,
-                      direct: bool = False, device: DeviceLike = "cuda",
+                      direct: Optional[bool] = None, device: DeviceLike = "cuda",
                       round_robin_size: int = 0, mesh: Optional[Mesh] = None,
                       axis="data") -> "Embedding":
         """An embedding whose table is read from a binary file list (rows
         of ``dim`` values of ``dtype``, numbered in file order), zero slots,
         step 0 (``embedding.py:562-590``; create_embedding_from_filelist,
         torch/embedding.py:462). The rows go through
-        :func:`~wholegraph_tpu_torch.io.load_filelist` onto the card. With
+        :func:`~wholegraph_tpu_torch.io.load_filelist` onto the card, with
+        O_DIRECT when ``direct`` is True, or None and ``WGTPU_DIRECT_IO=1``. With
         a ``mesh`` of W ranks each rank reads only its shard's rows, placed
         by the equal plan or, with ``round_robin_size``, by blocks of that
         many rows dealt round-robin (the reference's round-robin files,

@@ -58,6 +58,8 @@ from ..parallel.mesh import Mesh
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.dtypes import as_torch_dtype
 from ..utils.error import check_input
+# re-exported, as JAX's host_embedding does (wholegraph_tpu/embedding/host_embedding.py:558-563)
+from .cache import hot_ids_by_degree  # noqa: F401
 from .embedding import _dedup_sorted, exchange_grads_exact, row_train_step
 from .optimizers import SGD, SparseOptimizer
 

@@ -54,14 +54,16 @@ The ranks' backend is ``nccl`` on cards (a card a rank) and ``gloo`` on the
 CPU, or on cards shared by several ranks with the launcher's ``--backend
 gloo``.
 
-``--scan-epoch`` runs each epoch as JAX's ``lax.scan`` does, with no host
-round trip between steps (``examples/node_classification.py:376-391``):
-the epoch's batches are stacked and :func:`~wholegraph_tpu_torch.train.
-train_epoch` runs them with seeds ``global_step + arange(S)``; on a card
-its first steps warm up, one step is captured in a CUDA graph and the
-graph is replayed once a batch (dense Adam is built ``capturable``); the
-cache is refilled in place after the epoch. It runs at world 1; under the
-launcher it exits naming its ROADMAP item.
+``--scan-epoch`` runs each epoch as JAX's ``lax.scan`` does
+(``examples/node_classification.py:376-391``): the epoch's batches are
+stacked ``[S, B]``, each rank keeps its columns of every step
+(:func:`rank_share`, JAX's ``P(None, AXIS)``), and :func:`~wholegraph_tpu_torch.
+train.train_epoch` runs them with seeds ``global_step + arange(S)``. On one
+card its first steps warm up, one step is captured in a CUDA graph and the
+graph is replayed once a batch, with no host round trip between steps
+(dense Adam is built ``capturable`` there); under the launcher each rank
+runs the step once a batch, eagerly, so an epoch's losses are those of the
+run without the flag. The cache is refilled in place after the epoch.
 """
 
 from __future__ import annotations
@@ -82,8 +84,7 @@ from ..models.sharded_eval import eval_full_graph_sharded
 from ..ops.gather import gather_overflow
 from ..parallel import init
 from ..parallel.collectives import all_reduce
-from ..train import (SCAN_ITEM, SageTrainConfig, SageTrainState, gather_features, train_epoch,
-                     train_step)
+from ..train import SageTrainConfig, SageTrainState, gather_features, train_epoch, train_step
 
 
 def make_args(argv=None):
@@ -95,8 +96,9 @@ def make_args(argv=None):
     ap.add_argument("--halo-eval", action="store_true",
                     help="full-graph eval over the edge-partitioned halo layout")
     ap.add_argument("--scan-epoch", action="store_true",
-                    help="run each epoch with no host round trip between steps: one CUDA "
-                         "graph of the step, replayed once a batch (world 1)")
+                    help="run each epoch as one scan over its stacked batches: on one card "
+                         "a CUDA graph of the step, replayed once a batch; under the launcher "
+                         "the step once a batch on each rank")
     ap.add_argument("--save-dir", default="",
                     help="checkpoint directory; saves the feature table asynchronously every "
                          "--ckpt-every epochs")
@@ -115,6 +117,16 @@ def make_args(argv=None):
         args.valid_batchsize = 512
         args.neighbors = ",".join(["5"] * args.layernum)
     return args
+
+
+def rank_share(a, world: int, rank: int) -> np.ndarray:
+    """Rank ``rank``'s share of a global batch: the last axis split into
+    ``world`` equal parts, part ``rank`` kept. For a batch ``[B]`` that is
+    the block ``rank*B/W .. (rank+1)*B/W - 1``; for stacked batches
+    ``[S, B]`` it is those columns of every step (JAX's ``P(None, AXIS)``),
+    not whole steps."""
+    a = np.asarray(a)
+    return a.reshape(*a.shape[:-1], world, -1)[..., rank, :]
 
 
 def build_graph(ds, args, dev) -> GraphStructure:
@@ -204,17 +216,17 @@ def main(argv=None):
                     dropout=args.dropout, aggregator=args.aggregator, model_type=args.model,
                     num_heads=args.heads, num_relations=g.num_relations, device=dev)
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
-    if args.scan_epoch and world > 1:
-        raise SystemExit(f"--scan-epoch runs at world 1; beyond it is {SCAN_ITEM}")
-    # a CUDA graph replays Adam only when it is capturable (--scan-epoch on a card)
+    # a CUDA graph replays Adam only when it is capturable (--scan-epoch on one card,
+    # the one route of train_epoch that captures)
     dense_opt = torch.optim.Adam(model.parameters(), lr=args.lr,
-                                 capturable=bool(args.scan_epoch) and dev.type == "cuda")
+                                 capturable=bool(args.scan_epoch) and dev.type == "cuda"
+                                 and world == 1)
     dropout_gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def put(a):
-        """This rank's share of a global batch, on the device."""
-        a = np.asarray(a).astype(np.int32)
-        return torch.from_numpy(a.reshape(world, -1)[rank] if world > 1 else a).to(dev)
+        """This rank's share of a global batch ([B] or stacked [S, B]), on the device."""
+        a = rank_share(np.asarray(a).astype(np.int32), world, rank)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     node_labels = np.full(ds.node_count, -1, np.int32)  # -1: in no split
     for split in (ds.train, ds.valid, ds.test):

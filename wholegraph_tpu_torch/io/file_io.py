@@ -90,7 +90,7 @@ def _bytes_of(t: torch.Tensor) -> torch.Tensor:
 
 
 def _read_to_card(filelist, starts, entry_size: int, n: int, dst: torch.Tensor,
-                  direct: bool) -> None:
+                  direct: Optional[bool]) -> None:
     """Rows ``[0, n)`` into the card's flat byte view ``dst`` through the
     two pinned staging buffers: the read of one chunk overlaps the copy of
     the one before."""
@@ -112,7 +112,7 @@ def _read_to_card(filelist, starts, entry_size: int, n: int, dst: torch.Tensor,
 
 def load_filelist(filelist, dim: int, dtype, *, plan: Optional[PartitionPlan] = None,
                   round_robin_size: int = 0, expected_rows: Optional[int] = None,
-                  location: str = "device", direct: bool = False,
+                  location: str = "device", direct: Optional[bool] = None,
                   device: DeviceLike = "cuda", mesh: Optional[Mesh] = None,
                   axis="data") -> ShardedTable:
     """A new :class:`ShardedTable` read from a binary file list
@@ -122,7 +122,8 @@ def load_filelist(filelist, dim: int, dtype, *, plan: Optional[PartitionPlan] = 
     (file_io.cpp:102), or an equal one. At world 1 every plan places
     logical row i at physical row i; a round-robin plan's padding rows
     are zero. ``location="host"`` keeps the rows in pinned host memory.
-    ``direct=True`` reads with O_DIRECT. A file whose size is not a whole
+    ``direct=True`` reads with O_DIRECT, None as ``WGTPU_DIRECT_IO`` says
+    (:data:`~.native.DIRECT_IO`). A file whose size is not a whole
     number of rows, or a total other than ``expected_rows``, raises. With a
     ``mesh`` of W ranks the plan is over them (equal, round-robin or the
     caller's) and each rank reads only its shard's rows: the table equals
@@ -172,8 +173,8 @@ def shard_ranges(plan: PartitionPlan, s: int) -> List[tuple]:
 
 
 def _load_shard(filelist, starts, entry_size: int, plan: PartitionPlan, dim: int,
-                dt: torch.dtype, location: str, direct: bool, dev: torch.device, mesh: Mesh,
-                axis) -> ShardedTable:
+                dt: torch.dtype, location: str, direct: Optional[bool], dev: torch.device,
+                mesh: Mesh, axis) -> ShardedTable:
     """This rank's shard ``[capacity, dim]``: its ranges of rows read into a
     host buffer, padding rows zero, then moved to the card."""
     s = mesh.axis_index(axis)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +28,9 @@ from ..utils.error import check_input
 
 SOURCE = "fastio.cpp"
 DEFAULT_THREADS = min(os.cpu_count() or 4, 16)
+# O_DIRECT (no page cache) for the loads that leave ``direct`` None, read from the environment
+# at import (``wholegraph_tpu/io/native.py:77``): WGTPU_DIRECT_IO=1 turns it on
+DIRECT_IO = os.environ.get("WGTPU_DIRECT_IO", "0") == "1"
 
 _P = ctypes.c_void_p
 
@@ -57,15 +60,16 @@ def _buffer(buf):
 
 
 def read_rows_native(filelist: Sequence[str], file_starts, entry_size: int, lo: int, hi: int,
-                     out, nthreads: int = DEFAULT_THREADS, direct: bool = False) -> bool:
+                     out, nthreads: int = DEFAULT_THREADS,
+                     direct: Optional[bool] = None) -> bool:
     """Read global rows ``[lo, hi)`` of the file list (rows of
     ``entry_size`` bytes, numbered in file order; ``file_starts`` the
     cumulative row counts, one more than the files) into the first
     ``(hi - lo) * entry_size`` bytes of ``out``. ``direct=True`` opens the
     files with O_DIRECT (no page cache, for cold bulk loads), falling back
-    per file to buffered reads where the file system refuses it. Returns
-    whether O_DIRECT opened every file the range touches (False for
-    ``direct=False``)."""
+    per file to buffered reads where the file system refuses it; None
+    means :data:`DIRECT_IO`. Returns whether O_DIRECT opened every file
+    the range touches (False without O_DIRECT)."""
     addr, nbytes = _buffer(out)
     check_input(0 <= lo <= hi, f"bad row range [{lo}, {hi})")
     check_input(nbytes >= (hi - lo) * entry_size, "output buffer too small")
@@ -73,6 +77,7 @@ def read_rows_native(filelist: Sequence[str], file_starts, entry_size: int, lo: 
     check_input(len(starts) == len(filelist) + 1 and hi <= starts[-1],
                 f"row range [{lo}, {hi}) exceeds the file list's {starts[-1]} rows")
     paths = (ctypes.c_char_p * len(filelist))(*[os.fsencode(p) for p in filelist])
+    direct = DIRECT_IO if direct is None else direct
     all_direct = ctypes.c_int(0)
     rc = _lib().wgtpu_read_rows_v2(paths, len(filelist),
                                    starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),

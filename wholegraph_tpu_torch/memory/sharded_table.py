@@ -208,13 +208,14 @@ class ShardedTable:
     @staticmethod
     def from_filelist(filelist, dim: int, dtype, *, plan: Optional[PartitionPlan] = None,
                       round_robin_size: int = 0, expected_rows: Optional[int] = None,
-                      location: str = "device", direct: bool = False,
+                      location: str = "device", direct: Optional[bool] = None,
                       device: DeviceLike = "cuda", mesh: Optional[Mesh] = None,
                       axis="data") -> "ShardedTable":
         """A table read from a binary file list (tensor.from_filelist
         analog, torch/tensor.py:155): :func:`~wholegraph_tpu_torch.io.load_filelist`.
-        ``location="host"`` keeps the rows in pinned host memory. At world W
-        each rank reads only its shard's rows."""
+        ``location="host"`` keeps the rows in pinned host memory. ``direct``
+        None reads with O_DIRECT when ``WGTPU_DIRECT_IO=1``. At world W each
+        rank reads only its shard's rows."""
         from ..io.file_io import load_filelist
 
         return load_filelist(filelist, dim, dtype, plan=plan, round_robin_size=round_robin_size,

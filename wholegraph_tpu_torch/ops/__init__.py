@@ -1,10 +1,13 @@
-from . import rng
-# the store's gather and scatter stay at ops.gather.gather / ops.gather.scatter:
-# the name ``gather`` here is the module's
-from .gather import local_add, local_take, local_take_sorted, local_write
+from . import rng, spmm
+# the store's gather stays at ops.gather.gather: the name ``gather`` here is the module's
+# (imported as ``from wholegraph_tpu_torch.ops import gather``), where JAX's ops.gather is
+# the function
+from .gather import (gather_hierarchical, gather_overflow, local_add, local_take,
+                     local_take_sorted, local_write, scatter)
 from .gather_kernels import (ROW_GATHER, ROW_GATHER_MASKED, ROW_SCATTER, SAMPLE_COLS,
-                             SORTED_GATHER, gather_rows, gather_rows_masked, gather_rows_sorted,
-                             sample_cols, scatter_rows, scatter_rows_masked)
+                             SORTED_GATHER, choose_gather_kernel, gather_rows,
+                             gather_rows_masked, gather_rows_sorted, gather_rows_window,
+                             sample_cols, scatter_rows, scatter_rows_masked, window_coverage)
 from .graph_ops import add_self_loop_padded, append_unique, csr_add_self_loop, padded_to_csr
 from .host_kernels import (HOST_GATHER, HOST_SCATTER, host_gather_rows, host_scatter_rows,
                            pinned_empty)
@@ -23,6 +26,13 @@ KERNELS = (ROW_GATHER, ROW_SCATTER, SAMPLE_HOP, SAMPLE_COLS, NEIGHBOR_AGG, HOST_
 __all__ = [
     "KERNELS",
     "rng",
+    "spmm",
+    "gather_hierarchical",
+    "gather_overflow",
+    "scatter",
+    "choose_gather_kernel",
+    "gather_rows_window",
+    "window_coverage",
     "local_add",
     "local_take",
     "local_take_sorted",

@@ -38,6 +38,10 @@ loss, ``1/W`` of its own, through ``exchange_grads_exact``: the step of
 JAX's loss over the global batch (``__graft_entry__.py:77-92``).
 :func:`build_hetero` with a ``mesh`` shards each type's table, and
 :func:`hetero_train_step` runs at world W the same way.
+
+:func:`train_epoch` is JAX's scanned epoch: at world 1 on a card one CUDA
+graph of the step, replayed once a batch; at world W each rank runs the
+step once a batch on its share of the stacked batches.
 """
 
 from __future__ import annotations
@@ -306,7 +310,7 @@ def train_step(state: SageTrainState, centers: torch.Tensor, labels: torch.Tenso
 # ---------------------------------------------------------------------------
 
 WARMUP_STEPS = 2  # the epoch's first steps, run eagerly on a side stream before the capture
-SCAN_ITEM = "ROADMAP Queue 4 item 15"  # the scanned epoch beyond world 1 and the device table
+SCAN_ITEM = "ROADMAP Queue 4 item 15"  # the epoch over the host tier, and its graph beyond world 1
 
 
 @dataclasses.dataclass
@@ -346,16 +350,12 @@ def _reads(state: SageTrainState, generator: Optional[torch.Generator]) -> tuple
 
 
 def check_scannable(state: SageTrainState, graphed: bool = True) -> None:
-    """Raise unless :func:`train_epoch` can run ``state``: world 1, the table
-    in device memory and, for a CUDA graph (``graphed``), a dense optimizer
+    """Raise unless :func:`train_epoch` can run ``state``: the table in
+    device memory and, for a CUDA graph (``graphed``), a dense optimizer
     built with ``capturable=True``."""
     check_input(isinstance(state.embedding, Embedding),
                 "train_epoch runs over a table in device memory; the host tier (HostEmbedding), "
                 f"which the JAX scan never runs, is {SCAN_ITEM}")
-    check_input(_world(state) == 1,
-                "train_epoch runs at world 1: at world > 1 the exchange and the dense-gradient "
-                "average read counts on the host every step and gloo synchronises the card; "
-                f"{SCAN_ITEM}")
     if graphed:
         check_input(all(gr.get("capturable", False) for gr in state.dense_opt.param_groups),
                     "a CUDA graph replays the dense optimizer only when it is capturable: build it "
@@ -383,20 +383,32 @@ def train_epoch(state: SageTrainState, centers_s: torch.Tensor, labels_s: torch.
     device. Table, optimizer states and cache carry from step to step, and
     ``Embedding.step`` advances by S. ``generator`` draws the dropout masks.
 
-    On a card the host reads nothing until it returns: the epoch's first
-    :data:`WARMUP_STEPS` steps run eagerly on a side stream, one step is
-    captured in a CUDA graph (the dropout generator registered with it)
-    that reads its row of the inputs, seed and LazyAdam corrections at a
-    step counter on the card, and the graph is replayed for every step
-    left. The graph is kept on ``state.epoch_graph`` and replayed for all S
-    steps of a later epoch of the same S and B, unless a tensor it reads
-    has been replaced (:func:`_reads`), when it is captured again. A failed
-    capture raises; no step falls back to running eagerly. The dense
-    optimizer must be capturable (:func:`check_scannable`).
+    Where the state lives chooses the route; no route stands in for
+    another when something fails:
 
-    On the CPU it runs the same step S times, eagerly."""
+    - On a card at world 1 the host reads nothing until it returns: the
+      epoch's first :data:`WARMUP_STEPS` steps run eagerly on a side
+      stream, one step is captured in a CUDA graph (the dropout generator
+      registered with it) that reads its row of the inputs, seed and
+      LazyAdam corrections at a step counter on the card, and the graph is
+      replayed for every step left. The graph is kept on
+      ``state.epoch_graph`` and replayed for all S steps of a later epoch of
+      the same S and B, unless a tensor it reads has been replaced
+      (:func:`_reads`), when it is captured again. A failed capture raises.
+      The dense optimizer must be capturable (:func:`check_scannable`).
+    - At world > 1 (each rank passes its share of every step, ``[S, B/W]``),
+      on a card or on the CPU, the same step runs S times on the same
+      buffers, each reading its row, seed and corrections on the device;
+      nothing is captured and ``state.epoch_graph`` stays None. The exact
+      exchange reads its undelivered count on the host every round, the
+      dense-gradient average reads counts on the host and gloo synchronises
+      the card, so a graph of the step would need a fixed number of rounds
+      (:data:`SCAN_ITEM`). The losses are the ranks' mean, the same on every
+      rank, as :func:`train_step` returns them.
+    - On the CPU at world 1 the same step runs S times, eagerly."""
     dev = state.embedding.device
-    check_scannable(state, graphed=dev.type == "cuda")
+    graphed = dev.type == "cuda" and _world(state) == 1
+    check_scannable(state, graphed=graphed)
     check_input(centers_s.dim() == 2 and labels_s.shape == centers_s.shape,
                 f"centers_s and labels_s must be [S, B] alike, got {tuple(centers_s.shape)} and "
                 f"{tuple(labels_s.shape)}")
@@ -420,11 +432,11 @@ def train_epoch(state: SageTrainState, centers_s: torch.Tensor, labels_s: torch.
         rec = EpochGraph(None, centers_s.to(dev, torch.int32).clone(), labels_s.to(dev).clone(),
                          seeds.clone(), corr, torch.zeros(1, dtype=torch.int64, device=dev),
                          torch.zeros(S, dtype=torch.float32, device=dev))
-        if dev.type != "cuda":
+        if graphed:
+            _capture_epoch(state, rec, generator, S)
+        else:
             for _ in range(S):
                 _epoch_step(state, rec, generator)
-        else:
-            _capture_epoch(state, rec, generator, S)
     emb.step += S
     return rec.losses.clone()  # the next epoch's replays write rec.losses
 

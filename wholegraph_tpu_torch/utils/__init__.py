@@ -10,7 +10,7 @@ from .error import (
     check_input,
 )
 from .logger import debug, error, info, logger, set_log_level, trace, warn
-from .dtypes import as_torch_dtype, element_size, is_floating, is_integer
+from .dtypes import as_numpy_dtype, as_torch_dtype, element_size, is_floating, is_integer
 from .device import resolve_device
 
 __all__ = [
@@ -30,6 +30,7 @@ __all__ = [
     "set_log_level",
     "trace",
     "warn",
+    "as_numpy_dtype",
     "as_torch_dtype",
     "element_size",
     "is_floating",
