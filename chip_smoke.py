@@ -26,8 +26,9 @@ the examples under the launcher and the multichip dry run. In order:
    dim 256, batch 1024, fanouts (10, 15)) and runs one step that records the
    arguments of every kernel wrapper call;
 4. holds kernels A-D against their plain PyTorch versions on exactly those
-   tensors (plus A in bf16 and D as a sum), and times kernel, plain version
-   and one PyTorch library call computing the same function. Kernel C is the
+   tensors (plus A in bf16 and D as a sum; A and B bit for bit), and times
+   kernel, plain version and one PyTorch library call computing the same
+   function (A and B also by device time). Kernel C is the
    whole sampler hop (``sample_hop_uniform``): bit-equal to its plain
    version on all five ``SampleResult`` fields on the step's two hops and on
    graphs with rows of degree 0, K and K + 1, a hub and out-of-range
@@ -119,7 +120,9 @@ the examples under the launcher and the multichip dry run. In order:
    counts times 250: 1,000,000 papers, 375,000 authors, 50,000
    institutions, about 20M edges of 6 relations, the store under LazyAdam),
    its numpy build timed on its own line, then as in 9a (A 14 and B 9
-   calls a step, C 2, no D);
+   calls a step, C 2, no D), each A and B call's device ms (a CUDA graph of
+   20 calls, :func:`graph_ms`) printed beside its bound and the library
+   call's device ms, as for the main step's A and B calls in 4;
 9c. ``[scan_epoch]``: ``train.train_epoch`` (the scanned epoch: the
    epoch's first steps eagerly, one captured step, a CUDA graph replayed
    once a batch) at ``SageTrainConfig()``'s full width, nothing cut, for
@@ -326,8 +329,10 @@ exits non-zero; without CUDA it exits non-zero before printing any result.
 ``python3 chip_smoke.py --paired-times [part ...]`` only builds the kernels
 and times them through entry points that every tree of the port with the
 row store has (:func:`paired_times`; parts ``steps``, ``store``, ``sweep``,
-``spmm``, ``sddmm``, all by default; ``weighted``, uniform and weighted
-steps in turns, only when named), so that the same function also times
+``spmm``, ``sddmm``, ``hetero`` (the hetero step and each of its A and B
+calls by device time), ``rows`` (the same for the main step's A and B
+calls and ``[store]``'s masked B), all by default; ``weighted``, uniform
+and weighted steps in turns, only when named), so that the same function also times
 another tree: run it from that tree's root as ``python3 -c "import runpy,
 sys; sys.argv = ['chip_smoke.py', '--paired-times', 'store', 'spmm'];
 runpy.run_path('<path of this file>', run_name='__main__')"``, which imports
@@ -505,52 +510,81 @@ def pinned_bytes(tensors):
 # ---------------------------------------------------------------------------
 
 
-def timings(case, kernel, plain, library, bound, iters=20, plain_iters=20):
-    """One main-path call's times (ms, CUDA events) beside its bound."""
+def timings(case, kernel, plain, library, bound, iters=20, plain_iters=20, device=False):
+    """One main-path call's times (ms, CUDA events) beside its bound; with
+    ``device`` also the kernel's and the library call's device ms
+    (:func:`graph_ms`), which at narrow calls CUDA events cannot give."""
     b_ms, by = bound
-    return {"case": case, "ms": cuda_ms(kernel, iters),
-            "plain_ms": cuda_ms(plain, plain_iters, warmup=min(3, plain_iters)),
-            "library_ms": cuda_ms(library, plain_iters, warmup=min(3, plain_iters)),
-            "bound_ms": b_ms, "bound_by": by}
+    t = {"case": case, "ms": cuda_ms(kernel, iters),
+         "plain_ms": cuda_ms(plain, plain_iters, warmup=min(3, plain_iters)),
+         "library_ms": cuda_ms(library, plain_iters, warmup=min(3, plain_iters)),
+         "bound_ms": b_ms, "bound_by": by}
+    if device:
+        t.update(device_ms=graph_ms(kernel), library_device_ms=graph_ms(library))
+        t["bound_share"] = b_ms / t["device_ms"]
+    return t
+
+
+def row_bound(kind, table, ids):
+    """Kernel A's or B's bound for one call: each id read once; A reads
+    each distinct clipped row once and writes every output row, B reads and
+    writes each valid row once."""
+    n, rb, m = table.shape[0], table.shape[1] * table.element_size(), ids.numel()
+    if kind == "A":
+        return bound_ms(ids.element_size() * m
+                        + torch.unique(ids.long().clamp(0, n - 1)).numel() * rb + m * rb)
+    valid = int(((ids >= 0) & (ids < n)).sum())
+    return bound_ms(ids.element_size() * m + 2 * valid * rb)
 
 
 def check_gather(calls):
-    """Kernel A on the embedding gather and the apply's three row reads."""
+    """Kernel A on the embedding gather and the apply's three row reads,
+    bit for bit; timed by CUDA events and device time."""
     errs, times = [], []
     for i, (table, ids) in enumerate(calls):
-        n, rb = table.shape[0], table.shape[1] * table.element_size()
+        n = table.shape[0]
         for t in ((table, table.to(torch.bfloat16)) if i == 0 else (table,)):
-            err = max_err(G.gather_rows(t, ids), G.gather_rows_plain(t, ids))
-            require(err == 0.0, f"row_gather {t.dtype} differs from its plain version: {err}")
+            got, ref = G.gather_rows(t, ids), G.gather_rows_plain(t, ids)
+            err = max_err(got, ref)
+            require(bit_equal(got, ref), f"row_gather {t.dtype} differs from its plain version: "
+                                         f"{err}")
             errs.append({"case": f"call{i} {str(t.dtype)[6:]}", "max_abs_err": err, "tol": 0.0})
         clipped = ids.long().clamp(0, n - 1)
-        m = ids.numel()
         times.append(timings(
-            f"call{i} [{m}] of [{n}, {table.shape[1]}]",
+            f"call{i} [{ids.numel()}] of [{n}, {table.shape[1]}]",
             lambda: G.gather_rows(table, ids), lambda: G.gather_rows_plain(table, ids),
-            lambda: torch.index_select(table, 0, clipped),
-            bound_ms(4 * m + torch.unique(clipped).numel() * rb + m * rb)))
+            lambda: torch.index_select(table, 0, clipped), row_bound("A", table, ids),
+            device=True))
     return errs, times
 
 
+def log_device_calls(tag, kern, times):
+    """One line of A's or B's checked calls: each call's device ms, its
+    share of the bound, the bound and the library call's device ms."""
+    log(f"[{tag}] {kern.name} calls, device ms (bound share; bound, library device ms): "
+        + "; ".join(f"{t['case']} {t['device_ms']:.5f} ({t['bound_share']:.3f}; "
+                    f"{t['bound_ms']:.5f}, {t['library_device_ms']:.5f})" for t in times))
+
+
 def check_scatter(calls):
-    """Kernel B on the apply's write-backs, into a copy of each table."""
+    """Kernel B on the apply's write-backs, into a copy of each table, bit
+    for bit; timed by CUDA events and device time."""
     errs, times = [], []
     for i, (table, ids, rows) in enumerate(calls):
-        n, rb = table.shape[0], table.shape[1] * table.element_size()
+        n = table.shape[0]
         a, b = table.clone(), table.clone()
         G.scatter_rows(a, ids, rows)
         G.scatter_rows_plain(b, ids, rows)
         err = max_err(a, b)
-        require(err == 0.0, f"row_scatter differs from its plain version: {err}")
+        require(bit_equal(a, b), f"row_scatter differs from its plain version: {err}")
         errs.append({"case": f"call{i}", "max_abs_err": err, "tol": 0.0})
         valid = (ids >= 0) & (ids < n)
         vids, vrows = ids[valid].long(), rows[valid]
         times.append(timings(
             f"call{i} [{ids.numel()}] into [{n}, {table.shape[1]}]",
             lambda: G.scatter_rows(a, ids, rows), lambda: G.scatter_rows_plain(a, ids, rows),
-            lambda: a.index_copy_(0, vids, vrows),
-            bound_ms(4 * ids.numel() + 2 * vids.numel() * rb)))
+            lambda: a.index_copy_(0, vids, vrows), row_bound("B", table, ids), device=True))
+        times[-1]["valid_rows"] = vids.numel()
         del a, b
     return errs, times
 
@@ -1485,7 +1519,7 @@ def fg_sddmm_phase(g):
 
 PAIRED_STEPS = 30       # timed device-memory steps of a paired run
 PAIRED_HOST_STEPS = 10  # timed host-tier steps of a paired run
-PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm")
+PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm", "hetero", "rows")
 OWN_PARTS = ("weighted",)  # this tree's entry points only, never run by default
 
 
@@ -1510,6 +1544,13 @@ def paired_times(parts=PAIRED_PARTS):
     * ``sddmm``: kernel H through ``csr_sddmm`` on the bench graph and on
       uniform columns, at D = 256 and at GAT's head width (views of a
       [2^20, 4, 64] tensor), 20 calls each;
+    * ``hetero``: the hetero step at ``HeteroTrainConfig()``: each of one
+      step's 14 A and 9 B calls checked and timed (:func:`check_gather`,
+      :func:`check_scatter`: device time too), then PAIRED_STEPS timed
+      steps;
+    * ``rows``: the same for the device-memory step's 4 A and 3 B calls at
+      ``SageTrainConfig()``, and B's masked write of ``[store]``
+      (``ShardedTable.scatter`` of 2^19 uniform ids into 4,000,000 x 256);
     * ``weighted`` (named only; trees before weighted sampling lack it):
       PAIRED_STEPS uniform and weighted device-memory steps in turns
       (uniform, weighted, weighted, uniform) on the same graph, table and
@@ -1557,6 +1598,40 @@ def paired_times(parts=PAIRED_PARTS):
                 "step_median_ms", "step_p90_ms", "sample_median_ms", "busy_ms")},
                 "sample_host_enqueue_ms": host_ms, "sample_cuda_ms": cuda_ms(sample)})
         del states
+        torch.cuda.empty_cache()
+    if "hetero" in parts:
+        hcfg = wt.HeteroTrainConfig()
+        hst = wt.build_hetero(hcfg, device=dev, seed=0)
+
+        def hbatch():
+            c = hst.train_ids[torch.randperm(hst.train_ids.numel(), generator=gen,
+                                             device=dev)[:hcfg.batch]]
+            return c, hst.labels[c.long()]
+
+        calls, _ = captured_step(wt.hetero_train_step, hst, *hbatch())
+        out["hetero_calls"] = {"A": check_gather(calls["A"])[1],
+                               "B": check_scatter(calls["B"])[1]}
+        del calls
+        out["hetero_step"], _, _ = timed_steps("paired hetero", hst, hbatch, PAIRED_STEPS, 5,
+                                               step=wt.hetero_train_step)
+        del hst
+        torch.cuda.empty_cache()
+    if "rows" in parts:
+        state = wt.build_synthetic(cfg, device=dev, seed=0)
+        calls, _ = captured_step(wt.train_step, state, *batcher(state)())
+        out["main_calls"] = {"A": check_gather(calls["A"])[1], "B": check_scatter(calls["B"])[1]}
+        del state, calls
+        torch.cuda.empty_cache()
+        table = wt.ShardedTable.create(STORE_ROWS, 256, init=lambda g, shape, dt: torch.randn(
+            shape, generator=g, device=dev).to(dt), generator=gen, device=dev)
+        ids_u = torch.randint(0, STORE_ROWS, (STORE_BATCH,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        rows_w = torch.randn(STORE_BATCH, 256, generator=gen, device=dev)
+        bc = []
+        with capture_kw(gather_mod, "scatter_rows_masked", bc):
+            table = table.scatter(ids_u, rows_w, donate=True)
+        out["store_B"] = check_scatter([args for args, _ in bc])[1]
+        del table, ids_u, rows_w, bc
         torch.cuda.empty_cache()
     if "steps" in parts:
         state = wt.build_synthetic(cfg, device=dev, seed=0)
@@ -2754,6 +2829,8 @@ def hetero_phase():
 
     summary, checks = check_new_step("hetero", wt.hetero_train_step, state, batch,
                                      {"A": 14, "B": 9, "C": 2, "D": 0})
+    for kern in (G.ROW_GATHER, G.ROW_SCATTER):
+        log_device_calls("hetero", kern, checks[kern.name][1])
     for n, e in state.store.embeddings.items():
         require(bool(torch.isfinite(e.table).all()), f"[hetero] non-finite {n} table")
     del state
@@ -5234,7 +5311,8 @@ def kernel_entry(kern, launches, errs, times, **extra):
     library time only where every call has one); for E and F also the link
     bytes' time at the measured ``copy_`` rate, for C its parent's route and
     the fetch's ``take``."""
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "copy_ms", "parent_route_ms", "take_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "copy_ms", "parent_route_ms", "take_ms",
+            "device_ms", "library_device_ms")
     total = {k: sum(t[k] for t in times) for k in keys if all(t.get(k) is not None for t in times)}
     total.setdefault("library_ms", None)
     return {
@@ -5305,6 +5383,8 @@ def main():
         require(calls[key], f"kernel {kern.name} was not called by the main path")
         checks[key] = (kern, fn(calls[key]))
         log(f"[check] {kern.name}: {json.dumps(checks[key][1][0])}")
+        if key in "AB":
+            log_device_calls("check", kern, checks[key][1][1])
     del calls
 
     small_parity()

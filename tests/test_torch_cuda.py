@@ -82,6 +82,110 @@ def test_row_scatter_matches_plain(dev, dtype, D):
     assert torch.equal(on_card.cpu(), G.scatter_rows_plain(table.clone(), ids, rows))
 
 
+# Kernels A and B at the widths the paths give them (the hetero store's 64-,
+# 128- and 192-byte rows, the main step's 1 KB rows, rows of 4-byte vectors)
+# and shares of invalid ids from none to all, bit for bit.
+AB_ROW_BYTES = [4, 12, 64, 128, 192, 1024, 1028]
+AB_INVALID = [0.0, 2 / 3, 1.0]
+
+
+def _ab_table(n, row_bytes, dtype, seed):
+    return _store_table(n, row_bytes // torch.empty(0, dtype=dtype).element_size(), dtype,
+                        seed=seed)
+
+
+def _ab_ids(n, B, invalid, id_dtype, seed, unique):
+    """``B`` ids, a share ``invalid`` of them outside ``[0, n)`` (either
+    side, the type's extremes among them) and scattered through the batch,
+    the rest in range (distinct with ``unique``)."""
+    g = _gen(seed)
+    n_bad = round(B * invalid)
+    good = (torch.randperm(n, generator=g)[:B - n_bad] if unique
+            else torch.randint(0, n, (B - n_bad,), generator=g))
+    bad = torch.randint(-n, n, (n_bad,), generator=g)
+    bad = torch.where(bad < 0, bad, bad + n)
+    big = 2**31 - 1 if id_dtype == torch.int32 else 2**40
+    bad[:4] = torch.tensor([-1, n, big, -big])[:n_bad]
+    return torch.cat([good, bad])[torch.randperm(B, generator=g)].to(id_dtype)
+
+
+@pytest.mark.parametrize("row_bytes", AB_ROW_BYTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("invalid", AB_INVALID)
+def test_row_gather_widths_and_invalid_shares(dev, row_bytes, dtype, id_dtype, invalid):
+    n, B = 3000, 5001  # the last tile is partial at every width
+    table = _ab_table(n, row_bytes, dtype, row_bytes)
+    ids = _ab_ids(n, B, invalid, id_dtype, row_bytes + 1, unique=False)
+    before = G.ROW_GATHER.launches
+    out = G.gather_rows(table.to(dev), ids.to(dev)).cpu()
+    assert G.ROW_GATHER.launches == before + 1
+    assert torch.equal(_bits(out), _bits(G.gather_rows_plain(table, ids)))
+
+
+@pytest.mark.parametrize("row_bytes", AB_ROW_BYTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("invalid", AB_INVALID)
+def test_row_scatter_widths_and_invalid_shares(dev, row_bytes, dtype, id_dtype, invalid):
+    """Both of B's wrappers, the masked one counted under its route."""
+    n, B = 6000, 5001
+    table = _ab_table(n, row_bytes, dtype, row_bytes)
+    ids = _ab_ids(n, B, invalid, id_dtype, row_bytes + 2, unique=True)
+    rows = _ab_table(B, row_bytes, dtype, row_bytes + 3)
+    ref = G.scatter_rows_plain(table.clone(), ids, rows)
+    before, masked = G.ROW_SCATTER.launches, G.ROW_SCATTER.routes.get("masked", 0)
+    for fn in (G.scatter_rows, G.scatter_rows_masked):
+        on_card = table.to(dev)
+        assert fn(on_card, ids.to(dev), rows.to(dev)) is on_card
+        assert torch.equal(_bits(on_card.cpu()), _bits(ref)), fn.__name__
+    assert G.ROW_SCATTER.launches == before + 2
+    assert G.ROW_SCATTER.routes["masked"] == masked + 1
+
+
+@pytest.mark.parametrize("row_bytes", AB_ROW_BYTES)
+def test_row_gather_invalid_ids_on_one_row(dev, row_bytes):
+    """Two thirds of the ids -1, all clipped onto row 0, as the typed
+    gather sends its off-type slots."""
+    n, B = 3000, 6000
+    table = _ab_table(n, row_bytes, torch.float32, row_bytes)
+    g = _gen(row_bytes)
+    ids = torch.randint(0, n, (B,), generator=g, dtype=torch.int32)
+    ids[torch.randperm(B, generator=g)[:2 * B // 3]] = -1
+    out = G.gather_rows(table.to(dev), ids.to(dev)).cpu()
+    assert torch.equal(_bits(out), _bits(G.gather_rows_plain(table, ids)))
+    assert torch.equal(_bits(out[ids < 0]), _bits(table[0].expand(int((ids < 0).sum()), -1)))
+
+
+def test_row_gather_and_scatter_empty_batch(dev):
+    table = torch.randn(50, 48, device=dev)
+    before = (G.ROW_GATHER.launches, G.ROW_SCATTER.launches)
+    for id_dtype in (torch.int32, torch.int64):
+        none = torch.zeros(0, dtype=id_dtype, device=dev)
+        assert G.gather_rows(table, none).shape == (0, 48)
+        assert G.scatter_rows(table, none, torch.zeros(0, 48, device=dev)) is table
+    assert (G.ROW_GATHER.launches, G.ROW_SCATTER.launches) == before
+
+
+@pytest.mark.parametrize("offset_elems,vec", [(48, 16), (1, 4)])
+def test_row_gather_and_scatter_of_a_view_at_an_offset(dev, offset_elems, vec):
+    """A table that starts a row, or one element, into its storage: 16- or
+    4-byte vectors."""
+    n, D, B = 2000, 48, 3001
+    base = _store_table(n + 1, D, torch.float32, seed=9).view(-1)
+    table = base.to(dev)[offset_elems:offset_elems + n * D].view(n, D)
+    out_card = torch.empty(B, D, device=dev)
+    assert G.vector_bytes(D * 4, table.data_ptr(), out_card.data_ptr()) == vec
+    cpu = base[offset_elems:offset_elems + n * D].view(n, D)
+    ids = _ab_ids(n, B, 2 / 3, torch.int32, 10, unique=False)
+    assert torch.equal(_bits(G.gather_rows(table, ids.to(dev)).cpu()),
+                       _bits(G.gather_rows_plain(cpu, ids)))
+    ids = _ab_ids(n, 1500, 2 / 3, torch.int64, 11, unique=True)
+    rows = torch.randn(1500, D, generator=_gen(12))
+    G.scatter_rows(table, ids.to(dev), rows.to(dev))
+    assert torch.equal(_bits(table.cpu()), _bits(G.scatter_rows_plain(cpu.clone(), ids, rows)))
+
+
 @pytest.mark.parametrize("K", [3, 15, 200])
 def test_sample_cols_matches_plain(dev, K):
     col = torch.randint(0, 1000, (20000,), generator=_gen(K), dtype=torch.int32)

@@ -229,6 +229,46 @@ def test_hetero_gnn_matches_jax():
         np.testing.assert_allclose(rows[n].grad.numpy(), np.asarray(jdr[n]), **GRAD)
 
 
+@pytest.mark.parametrize("fanouts", [(4, 3), (8, 8)])
+def test_store_at_the_example_widths_on_a_sampled_batch_matches_jax(fanouts):
+    """The typed gather and two LazyAdam typed applies at the example's
+    widths (48, 32, 16) on a sampled batch's slots, as the hetero step hands
+    them over: the unique ids, then padding, so most of each type's slots
+    are off-type. Gathered rows exact; each type's table, m and v within
+    FWD of JAX's ``HeteroFeatureStore``."""
+    j, t, centers, jml, tml = _hetero_sample(seed=6, fanouts=fanouts)
+    assert t["space"].dims == (48, 32, 16)
+    gids, umask = tml.unique_gids, tml.unique_mask
+    assert np.array_equal(gids.numpy(), np.asarray(jml.unique_gids))
+    # each level's unique ids, then its padding (the sentinel ``total``)
+    assert (~umask).any() and (gids[~umask] == t["space"].total).all()
+    arrays = t["features"]
+    jstore = JaxStore.create(_mesh1(), j["space"], optimizer=JaxLazyAdam())
+    states = jstore.from_arrays(arrays)
+    tstore = HeteroFeatureStore.create(t["space"], optimizer=LazyAdam(),
+                                       device="cpu").from_arrays(arrays)
+    jrows, jmasks = jstore.gather_typed(states, jnp.asarray(gids.numpy()))
+    rows, masks = tstore.gather_typed(gids)
+    for n in t["space"].names:
+        assert masks[n].float().mean() < 0.9, n  # most of a type's slots are not its own
+        assert np.array_equal(masks[n].numpy(), np.asarray(jmasks[n])), n
+        assert np.array_equal(rows[n].numpy(), np.asarray(jrows[n])), n
+    rs = np.random.RandomState(7)
+    for _ in range(2):
+        grads = {n: rs.randn(gids.shape[0], d).astype(np.float32)
+                 for n, d in zip(t["space"].names, t["space"].dims)}
+        states = jstore.apply_gradients(states, jnp.asarray(gids.numpy()),
+                                        {k: jnp.asarray(v) for k, v in grads.items()}, 0.01,
+                                        mask=jnp.asarray(umask.numpy()), assume_unique=True)
+        tstore.apply_gradients(gids, {k: torch.from_numpy(v) for k, v in grads.items()}, 0.01,
+                               mask=umask, assume_unique=True)
+    for n in t["space"].names:
+        je, te = jstore.embeddings[n], tstore.embeddings[n]
+        np.testing.assert_allclose(te.to_array(), je.to_array(states[n]), **FWD)
+        for s in ("m", "v"):
+            np.testing.assert_allclose(te.slot_to_array(s), je.slot_to_array(states[n], s), **FWD)
+
+
 def test_params_from_jax_hetero_layout():
     tree = {"params": {"typed_proj": {"proj_a": {"kernel": np.ones((3, 2), np.float32),
                                                  "bias": np.zeros(2, np.float32)}},

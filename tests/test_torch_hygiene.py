@@ -314,3 +314,24 @@ def test_kernel_helpers_are_defined_once():
                         ("row_gather.cu", "direct_gather.cuh"),
                         ("csr_spmm.cu", "csr_tiles.cuh"), ("csr_sddmm.cu", "csr_tiles.cuh")):
         assert f'#include "{header}"' in texts[src], (src, header)
+
+
+@pytest.mark.parametrize("part", ["A", "B", "G", "J", "K"])
+def test_kernel_variants_still_apply_to_the_sources(part):
+    """Every design alternative of ``tools/kernel_variants.py`` still
+    matches the current source it edits (the tool lists a stale one and
+    builds nothing of it, so its record would quietly shrink)."""
+    from wholegraph_tpu_torch.tools import kernel_variants as kv
+
+    def read(name):
+        with open(os.path.join(kernels.CSRC, name)) as f:
+            return f.read()
+
+    built, stale = {
+        "A": lambda: kv.a_variants(read("row_gather.cu")),
+        "B": lambda: kv.b_variants(read("row_scatter.cu"), read("row_scatter.cuh")),
+        "G": lambda: kv.g_variants(read("csr_spmm.cu")),
+        "J": lambda: kv.j_variants(read("row_gather.cu"), read("direct_gather.cuh")),
+        "K": lambda: kv.k_register_variants(read("sample_weighted.cu")),
+    }[part]()
+    assert built and stale == []

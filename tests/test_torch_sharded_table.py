@@ -305,6 +305,29 @@ def test_masked_tile_fills_its_bytes(row_bytes, tile):
     assert K.masked_tile(row_bytes) == tile
 
 
+@pytest.mark.parametrize("row_bytes,tile", [(1024, 8), (192, 42), (128, 64), (64, 128),
+                                            (12, 682), (4, 1024), (1028, 7), (8 * 1024, 1),
+                                            (80_000, 1)])
+def test_gather_tile_fills_its_bytes(row_bytes, tile):
+    """Kernel A's tile: as many ids as fill GATHER_TILE_BYTES of output,
+    at most GATHER_MAX_TILE (4 a thread), at least one."""
+    assert K.gather_tile(row_bytes) == tile
+    assert 1 <= tile <= K.GATHER_MAX_TILE
+    assert tile == 1 or tile * row_bytes <= K.GATHER_TILE_BYTES
+
+
+@pytest.mark.parametrize("row_bytes,tile", [(1024, 64), (1028, 63), (192, 341), (128, 512),
+                                            (64, 512), (12, 512), (4, 512), (64 * 1024, 1),
+                                            (80_000, 1)])
+def test_scatter_tile_fills_its_bytes(row_bytes, tile):
+    """Kernel B's tile: as many ids as would fill SCATTER_TILE_BYTES were
+    all of them valid, at most SCATTER_MAX_TILE (2 a thread), at least one;
+    the narrow rows of the hetero store take the most."""
+    assert K.scatter_tile(row_bytes) == tile
+    assert 1 <= tile <= K.SCATTER_MAX_TILE
+    assert tile == 1 or tile * row_bytes <= K.SCATTER_TILE_BYTES
+
+
 def test_kernel_plain_contracts():
     """Kernels I and J and B's masked route on the CPU: the plain versions
     their wrappers run there, against numpy."""

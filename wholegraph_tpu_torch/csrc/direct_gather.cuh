@@ -1,6 +1,9 @@
 // The direct drain of a row gather, shared by kernel I (sorted_gather.cu, the
-// tiles it reads directly and, out of shared memory, the tiles it windows) and
-// kernel J (row_gather.cu, wg_row_gather_masked, every tile).
+// tiles it reads directly and, out of shared memory, the tiles it windows),
+// kernel J (row_gather.cu, wg_row_gather_masked, every tile) and kernel A
+// (row_gather.cu, wg_row_gather, every tile, under the clip rule). Kernel B
+// (row_scatter.cuh) walks its valid rows in the same order with source and
+// destination swapped, and takes load_id and loads_in_flight from here.
 //
 // A CTA of GATHER_THREADS threads owns a tile of consecutive ids. It reads
 // them into shared memory under the id rule (tile_id), then walks the tile's

@@ -15,8 +15,9 @@
 // other slots skipped. Replaces `_host_put_kernel` (:1183). Non-negative slots
 // are unique by contract (as at :1586-1588); the TPU's page read-modify-write
 // (:1589-1628) is gone, because a row is written whole. F's body is kernel
-// B's (row_scatter.cuh) run on the host table's device address: writes to
-// mapped host memory are posted, so the warp does not wait on the link.
+// B's earlier one, one warp a row (row_scatter.cuh, warp_row_scatter), run on
+// the host table's device address: writes to mapped host memory are posted,
+// so the warp does not wait on the link.
 //
 // Bound: bytes over the host link (PCIe Gen5 x16 on an H100 SXM). E must read
 // each distinct valid row once from the host and write every out row to HBM;
@@ -256,8 +257,8 @@ extern "C" int wg_host_scatter(const void* host_base, int64_t host_offset, const
   char* host = nullptr;
   cudaError_t e = device_address(host_base, host_offset, vec_bytes, &host);
   if (e != cudaSuccess) return int(e);
-  return int(wg::row_scatter(host, slots, slots64, rows, n_rows, n_slots, row_bytes, vec_bytes,
-                             static_cast<cudaStream_t>(stream)));
+  return int(wg::warp_row_scatter(host, slots, slots64, rows, n_rows, n_slots, row_bytes,
+                                  vec_bytes, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* wg_error_string(int err) {

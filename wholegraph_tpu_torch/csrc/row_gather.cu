@@ -15,15 +15,29 @@
 // there instead, inside that contract, so a store serve needs no masking pass
 // after it.
 //
-// Bound: bytes. Each output row is one table row read and one row written
-// (2 * n_ids * row_bytes, plus the ids; J reads nothing for an invalid id);
-// there is no arithmetic. At D = 256 f32 a row is 1 KB, so the read is a
-// random 1 KB burst per id.
+// Bound: bytes. The ids read once, each distinct table row read once and
+// every output row written once (J reads nothing for an invalid id); there is
+// no arithmetic. At D = 256 f32 a row is 1 KB, so the read is a random 1 KB
+// burst per id.
 //
-// A's design: one warp per output row, 16-byte vectors where the row and the
-// pointers allow, a grid-stride loop over rows. A warp keeps only its row's
-// vectors in flight (two 16-byte loads a lane at 1 KB rows), each stored
-// before the next row's id is read.
+// A's design: J's, under the clip rule. A CTA of 256 threads per tile of
+// `tile` ids (ops.gather_kernels.gather_tile: as many as fill
+// GATHER_TILE_BYTES = 8 KB of output, up to 1024, 4 a thread) reads them into
+// shared memory, clipped (tile_id(..., 0)), then drains the tile's output, one
+// contiguous block, with 4 or 8 vector loads in flight a thread before any
+// store (direct_gather.cuh). It replaced one warp a row (lanes across the row,
+// one row in flight a warp, the grid capped at 132 x 32 CTAs): at the hetero
+// store's 64-192-byte rows only 4-12 of a warp's 32 lanes carried a load.
+// Measured on an H100 (tools/kernel_variants.py, device time of a CUDA graph
+// of 20 calls), at the hetero step's typed gathers of 984,064 ids into rows of
+// 192 / 128 / 64 bytes: 0.0847 / 0.0483 / 0.0254 ms, 0.84 / 0.82 / 0.79 of the
+// bound, where one warp a row took 0.1533 / 0.1231 / 0.1119; at the main
+// step's 180,224 ids of 1 KB rows 0.1138 against 0.1180. Two thirds of those
+// typed ids are -1, clipped onto row 0; the same slots spread over random rows
+// take 0.1327 / 0.0788 / 0.0255 ms, so the repeated row costs nothing (it is
+// a cache hit). Kept out: the tile's first row read once into shared memory
+// for the slots that repeat it (3-7 % slower); tiles of 16 KB (within 1 %) and
+// of 4, 32 and 64 KB (up to 24 % slower).
 //
 // J's design: kernel I's direct route (direct_gather.cuh), the same body I's
 // direct tiles run. A CTA of 256 threads per tile of `tile` ids (8 KB of
@@ -46,34 +60,33 @@ namespace {
 // Kernel A
 // ---------------------------------------------------------------------------
 
-template <typename V>
-__global__ void row_gather_kernel(const V* __restrict__ table,
-                                  const void* __restrict__ ids, int ids64,
-                                  V* __restrict__ out, int64_t n_rows,
-                                  int64_t n_ids, int64_t vecs_per_row) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t n_warps = (int64_t(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t i = warp; i < n_ids; i += n_warps) {
-    int64_t id = ids64 ? static_cast<const int64_t*>(ids)[i]
-                       : int64_t(static_cast<const int32_t*>(ids)[i]);
-    id = id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
-    V* dst = out + i * vecs_per_row;
-    const V* src = table + id * vecs_per_row;
-    for (int64_t v = lane; v < vecs_per_row; v += 32) dst[v] = src[v];
-  }
+constexpr int ROW_GATHER_MAX_TILE = 1024;  // ids a tile: 4 a thread at most
+
+template <typename V, int U>
+__global__ void __launch_bounds__(wg::GATHER_THREADS)
+row_gather_kernel(const V* __restrict__ table, const void* __restrict__ ids, int ids64,
+                  V* __restrict__ out, int64_t n_rows, int64_t n_ids, int vpr, int tile) {
+  __shared__ int64_t tile_ids[ROW_GATHER_MAX_TILE];
+  const int64_t t0 = int64_t(blockIdx.x) * tile;
+  const int m = int(n_ids - t0 < tile ? n_ids - t0 : tile);
+#pragma unroll 4
+  for (int j = threadIdx.x; j < m; j += wg::GATHER_THREADS)
+    tile_ids[j] = wg::tile_id(wg::load_id(ids, ids64, t0 + j), n_rows, 0);
+  __syncthreads();
+  wg::drain<V, U>(out + t0 * vpr, tile_ids, m, vpr,
+                  [&](int64_t id, int v) { return table[id * vpr + v]; });
 }
 
 template <typename V>
 void launch_row_gather(const void* table, const void* ids, int ids64, void* out,
-                       int64_t n_rows, int64_t n_ids, int64_t row_bytes,
+                       int64_t n_rows, int64_t n_ids, int64_t row_bytes, int tile,
                        cudaStream_t stream) {
-  const int threads = 256;  // 8 warps, one row each per iteration
-  int64_t blocks = (n_ids + 7) / 8;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  row_gather_kernel<V><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const V*>(table), ids, ids64, static_cast<V*>(out), n_rows,
-      n_ids, row_bytes / int64_t(sizeof(V)));
+  const int vpr = int(row_bytes / int64_t(sizeof(V)));
+  const unsigned blocks = unsigned((n_ids + tile - 1) / tile);
+  auto kernel = wg::loads_in_flight(tile, vpr) == 8 ? row_gather_kernel<V, 8>
+                                                     : row_gather_kernel<V, 4>;
+  kernel<<<blocks, wg::GATHER_THREADS, 0, stream>>>(
+      static_cast<const V*>(table), ids, ids64, static_cast<V*>(out), n_rows, n_ids, vpr, tile);
 }
 
 // ---------------------------------------------------------------------------
@@ -110,19 +123,23 @@ void launch_masked_gather(const void* table, const void* ids, int ids64, void* o
 
 }  // namespace
 
+// tile: ids a CTA, 1..1024 (ops.gather_kernels.gather_tile); a tile's vectors,
+// tile * row_bytes / vec_bytes, below 2^31.
 extern "C" int wg_row_gather(const void* table, const void* ids, int ids64,
                              void* out, int64_t n_rows, int64_t n_ids,
-                             int64_t row_bytes, int vec_bytes, void* stream) {
+                             int64_t row_bytes, int vec_bytes, int tile, void* stream) {
   if (n_ids <= 0 || n_rows <= 0 || row_bytes <= 0 || vec_bytes <= 0 ||
-      row_bytes % vec_bytes)
+      row_bytes % vec_bytes || tile <= 0 || tile > ROW_GATHER_MAX_TILE ||
+      int64_t(tile) * (row_bytes / vec_bytes) >= (int64_t(1) << 31) ||
+      (n_ids + tile - 1) / tile >= (int64_t(1) << 31))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (vec_bytes) {
-    case 16: launch_row_gather<uint4>(table, ids, ids64, out, n_rows, n_ids, row_bytes, s); break;
-    case 8: launch_row_gather<uint2>(table, ids, ids64, out, n_rows, n_ids, row_bytes, s); break;
-    case 4: launch_row_gather<uint32_t>(table, ids, ids64, out, n_rows, n_ids, row_bytes, s); break;
-    case 2: launch_row_gather<uint16_t>(table, ids, ids64, out, n_rows, n_ids, row_bytes, s); break;
-    case 1: launch_row_gather<uint8_t>(table, ids, ids64, out, n_rows, n_ids, row_bytes, s); break;
+    case 16: launch_row_gather<uint4>(table, ids, ids64, out, n_rows, n_ids, row_bytes, tile, s); break;
+    case 8: launch_row_gather<uint2>(table, ids, ids64, out, n_rows, n_ids, row_bytes, tile, s); break;
+    case 4: launch_row_gather<uint32_t>(table, ids, ids64, out, n_rows, n_ids, row_bytes, tile, s); break;
+    case 2: launch_row_gather<uint16_t>(table, ids, ids64, out, n_rows, n_ids, row_bytes, tile, s); break;
+    case 1: launch_row_gather<uint8_t>(table, ids, ids64, out, n_rows, n_ids, row_bytes, tile, s); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());

@@ -29,12 +29,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 ROW_GATHER = kernels.Kernel(
     "row_gather", "row_gather.cu", "wg_row_gather",
-    [_P, _P, _I, _P, _L, _L, _L, _I, _P],
+    [_P, _P, _I, _P, _L, _L, _L, _I, _I, _P],
     replaces="wholegraph_tpu/ops/gather_pallas.py:35",  # _gather_kernel
 )
 ROW_SCATTER = kernels.Kernel(
     "row_scatter", "row_scatter.cu", "wg_row_scatter",
-    [_P, _P, _I, _P, _L, _L, _L, _I, _P],
+    [_P, _P, _I, _P, _L, _L, _L, _I, _I, _P],
     # _scatter_kernel, and _masked_scatter_kernel through route="masked"
     replaces="wholegraph_tpu/ops/gather_pallas.py:102,1066",
 )
@@ -95,6 +95,16 @@ def _gather_out(table: torch.Tensor, ids: torch.Tensor):
 # Kernel A: row gather
 # ---------------------------------------------------------------------------
 
+# output bytes a CTA of kernel A aims at (csrc/row_gather.cu)
+GATHER_TILE_BYTES = 8 * 1024
+GATHER_MAX_TILE = 1024  # ids a CTA of kernel A: 4 a thread at most
+
+
+def gather_tile(row_bytes: int) -> int:
+    """Ids per CTA of kernel A for rows of ``row_bytes``: as many as fill
+    GATHER_TILE_BYTES of output, from 1 to GATHER_MAX_TILE."""
+    return max(1, min(GATHER_MAX_TILE, GATHER_TILE_BYTES // max(row_bytes, 1)))
+
 
 def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``out[i] = table[clip(ids[i], 0, N-1)]``."""
@@ -111,9 +121,11 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     ids, out, row_bytes = _gather_out(table, ids)
     if out.numel() == 0:
         return out
+    vec = vector_bytes(row_bytes, table.data_ptr(), out.data_ptr())
+    tile = gather_tile(row_bytes)
+    check_input(tile * (row_bytes // vec) < 2**31, "a tile of rows must hold fewer than 2^31 vectors")
     ROW_GATHER(table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
-               out.data_ptr(), table.shape[0], ids.shape[0], row_bytes,
-               vector_bytes(row_bytes, table.data_ptr(), out.data_ptr()),
+               out.data_ptr(), table.shape[0], ids.shape[0], row_bytes, vec, tile,
                kernels.cuda_stream(table.device))
     return out
 
@@ -121,6 +133,22 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Kernel B: row scatter
 # ---------------------------------------------------------------------------
+
+# bytes of rows a CTA of kernel B aims at, were all its ids valid, and the
+# most ids a CTA takes (csrc/row_scatter.cu). On an H100 (tools/kernel_variants.py)
+# 256-512 ids ran best at the hetero store's 64-192-byte rows, most ids masked,
+# and 16-32 at 1 KB rows; 64 KB gives 341-512 and 64, the last as fast as the
+# earlier kernel at 1 KB rows.
+SCATTER_TILE_BYTES = 64 * 1024
+SCATTER_MAX_TILE = 512
+
+
+def scatter_tile(row_bytes: int) -> int:
+    """Ids per CTA of kernel B for rows of ``row_bytes``: as many as would
+    fill SCATTER_TILE_BYTES were all of them valid, from 1 to
+    SCATTER_MAX_TILE (2 a thread). A masked id costs a CTA only its read,
+    so narrow rows take the most ids."""
+    return max(1, min(SCATTER_MAX_TILE, SCATTER_TILE_BYTES // max(row_bytes, 1)))
 
 
 def scatter_rows_plain(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -142,9 +170,11 @@ def _scatter(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor, route) 
     row_bytes = table.shape[1] * table.element_size()
     if ids.numel() == 0 or row_bytes == 0 or table.shape[0] == 0:
         return table
+    vec = vector_bytes(row_bytes, table.data_ptr(), rows.data_ptr())
+    tile = scatter_tile(row_bytes)
+    check_input(tile * (row_bytes // vec) < 2**31, "a tile of rows must hold fewer than 2^31 vectors")
     ROW_SCATTER(table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
-                rows.data_ptr(), table.shape[0], ids.shape[0], row_bytes,
-                vector_bytes(row_bytes, table.data_ptr(), rows.data_ptr()),
+                rows.data_ptr(), table.shape[0], ids.shape[0], row_bytes, vec, tile,
                 kernels.cuda_stream(table.device), route=route)
     return table
 

@@ -1,11 +1,13 @@
-"""Design alternatives of kernels G, J and K, timed against the kernels as
-built: ``python3 -m wholegraph_tpu_torch.tools.kernel_variants [--out FILE]
-[--parts G J K] [--k-parent FILE]``.
+"""Design alternatives of kernels A, B, G, J and K, timed against the kernels
+as built: ``python3 -m wholegraph_tpu_torch.tools.kernel_variants [--out FILE]
+[--parts A B G J K] [--k-parent FILE]``.
 
-Each variant is the current source of ``csrc/csr_spmm.cu`` (G),
-``csrc/row_gather.cu`` (J, with ``direct_gather.cuh`` inlined where the
-variant changes it) or ``csrc/sample_weighted.cu`` (K) with one stated
-change, applied by text substitution
+Each variant is the current source of ``csrc/row_gather.cu`` (A; J, with
+``direct_gather.cuh`` inlined where the variant changes it),
+``csrc/row_scatter.cu`` (B, with ``row_scatter.cuh`` inlined where the
+variant changes it), ``csrc/csr_spmm.cu`` (G) or
+``csrc/sample_weighted.cu`` (K) with one stated change, applied by text
+substitution
 that must match: a variant whose text no longer matches the source is
 reported as such and not built, so the tool never holds the kernels to its
 own copy of them. The variants are built with the port's ``nvcc`` flags into
@@ -16,6 +18,16 @@ bit-equal to the kernel's, except a probe's: a probe removes one step of a
 kernel, so that the time of that step is the kernel's time less the
 probe's, and its output is not kept.
 
+* A and B at each distinct call of one hetero step at
+  ``HeteroTrainConfig()`` (the typed gather's off-type slots -1, clipped
+  onto row 0, and the same slots spread over random rows), of one SAGE
+  step at ``SageTrainConfig()``, and B at ``bench_scatter``'s masked
+  write: A over tiles of 4-64 KB of output (``GATHER_TILE_BYTES``), B
+  over tiles of 16-512 ids (``scatter_tile``); variants: one warp a row
+  (each kernel's earlier design), A's tile's first row read once into
+  shared memory, B with 8 loads of ``rows`` in flight a thread; beside
+  each call's bound and ``index_select`` / ``index_copy_``, by device time
+  alone; a probe of B that reads its ids and writes no row.
 * G at ``bench_spmm_clustered``'s shapes (``clustered_csr(2^20, 16, 192)``,
   x [2^20, 256] f32): mean, weighted sum, and the weighted sum over the
   transposed CSR; variants: two barriers a slab, rows in CSR order (no
@@ -49,7 +61,7 @@ probe's, and its output is not kept.
   path, a rank count in shared memory up to 256 edges) with that design's
   probes (centre rows only; no rank count; the count over plain weights; no
   second read of the neighbour; keys only). ``--parts`` limits the run to
-  some of G, J and K.
+  some of A, B, G, J and K.
 
 Every function is timed in turns, three rounds, by CUDA events (the median)
 and once as device time from a CUDA graph of 20 calls. Prints one JSON
@@ -271,6 +283,89 @@ def j_variants(src: str, header: str) -> tuple:
         "J read-only loads": lambda: _sub(src, "{ return table[id * vpr + v]; }",
                                           "{ return __ldg(&table[id * vpr + v]); }"),
         "J persistent CTAs": persistent,
+    })
+
+
+_A_LAUNCH = """  const unsigned blocks = unsigned((n_ids + tile - 1) / tile);
+  auto kernel = wg::loads_in_flight(tile, vpr) == 8 ? row_gather_kernel<V, 8>
+                                                     : row_gather_kernel<V, 4>;
+  kernel<<<blocks, wg::GATHER_THREADS, 0, stream>>>(
+      static_cast<const V*>(table), ids, ids64, static_cast<V*>(out), n_rows, n_ids, vpr, tile);
+"""
+_A_WARP_KERNEL = """template <typename V>
+__global__ void warp_row_gather_kernel(const V* __restrict__ table, const void* __restrict__ ids,
+                                       int ids64, V* __restrict__ out, int64_t n_rows,
+                                       int64_t n_ids, int64_t vecs_per_row) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps = (int64_t(gridDim.x) * blockDim.x) >> 5;
+  for (int64_t i = warp; i < n_ids; i += n_warps) {
+    const int64_t id = wg::tile_id(wg::load_id(ids, ids64, i), n_rows, 0);
+    V* dst = out + i * vecs_per_row;
+    const V* src = table + id * vecs_per_row;
+    for (int64_t v = lane; v < vecs_per_row; v += 32) dst[v] = src[v];
+  }
+}
+
+"""
+_A_WARP_LAUNCH = """  int64_t blocks = (n_ids + 7) / 8;
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  warp_row_gather_kernel<V><<<(unsigned)blocks, 256, 0, stream>>>(
+      static_cast<const V*>(table), ids, ids64, static_cast<V*>(out), n_rows, n_ids, vpr);
+"""
+_A_REPEAT = """  wg::drain<V, U>(out + t0 * vpr, tile_ids, m, vpr,
+                  [&](int64_t id, int v) { return table[id * vpr + v]; });
+"""
+_A_REPEAT_ONCE = """  // the tile's first id's row, in shared memory once for every slot that repeats it
+  __shared__ V first_row[64];
+  const int64_t first = tile_ids[0];
+  const bool cache = vpr <= 64;
+  if (cache)
+    for (int v = threadIdx.x; v < vpr; v += wg::GATHER_THREADS) first_row[v] = table[first * vpr + v];
+  __syncthreads();
+  wg::drain<V, U>(out + t0 * vpr, tile_ids, m, vpr, [&](int64_t id, int v) {
+    return cache && id == first ? first_row[v] : table[id * vpr + v];
+  });
+"""
+_B_CALL = """  return int(wg::row_scatter(table, ids, ids64, rows, n_rows, n_ids, row_bytes, vec_bytes, tile,
+"""
+_B_WARP_CALL = """  return int(wg::warp_row_scatter(table, ids, ids64, rows, n_rows, n_ids, row_bytes, vec_bytes,
+"""
+_B_LOADS = "constexpr int SCATTER_LOADS = 4;"
+_B_VALID = "ball[c] = __ballot_sync(0xffffffffu, id[c] >= 0 && id[c] < n_rows);"
+
+
+def _inline_scatter(src: str, header: str) -> str:
+    """``src`` with its ``#include "row_scatter.cuh"`` replaced by
+    ``header``'s text in a namespace of its own (which sees ``wg``'s
+    helpers), so that a variant may change it."""
+    return _sub(src, '#include "row_scatter.cuh"',
+                header.replace("namespace wg {", "namespace wgv {\nusing namespace wg;")
+                ).replace("wg::row_scatter(", "wgv::row_scatter(")
+
+
+def a_variants(src: str) -> tuple:
+    """Kernel A's alternatives: the parent's design (one warp a row), and a
+    tile's first id's row read once into shared memory for the slots that
+    repeat it (the hot row of clipped ids)."""
+    return _each({
+        "A one warp a row (the parent's design)": lambda: _sub(_sub(
+            src, _A_LAUNCH, _A_WARP_LAUNCH), "template <typename V>\nvoid launch_row_gather(",
+            _A_WARP_KERNEL + "template <typename V>\nvoid launch_row_gather("),
+        "A the tile's first row read once": lambda: _sub(src, _A_REPEAT, _A_REPEAT_ONCE),
+    })
+
+
+def b_variants(src: str, header: str) -> tuple:
+    """Kernel B's alternatives: the parent's design (one warp a row, kernel
+    F's body), and 8 loads of ``rows`` in flight a thread; a probe that
+    reads the ids and finds none valid (the id pass alone)."""
+    return _each({
+        "probe: B reads its ids, no row": lambda: _inline_scatter(
+            src, _sub(header, _B_VALID, _B_VALID.replace("id[c] < n_rows", "id[c] < -n_rows"))),
+        "B one warp a row (the parent's design)": lambda: _sub(src, _B_CALL, _B_WARP_CALL),
+        "B 8 loads in flight a thread": lambda: _inline_scatter(
+            src, _sub(header, _B_LOADS, "constexpr int SCATTER_LOADS = 8;")),
     })
 
 
@@ -593,10 +688,190 @@ def k_section(libs: dict, names: list, gen) -> dict:
     return out
 
 
+A_TILE_BYTES = (4096, 8192, 16384, 32768, 65536)       # GATHER_TILE_BYTES tried
+B_TILE_IDS = (16, 32, 64, 128, 256, 512)  # ids a CTA of B tried
+STORE_ROWS, STORE_BATCH = 4_000_000, 1 << 19           # bench_scatter's table and batch
+
+
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """Every call of ``module.name`` appends its arguments to ``calls``."""
+    fn = getattr(module, name)
+
+    def rec(*args):
+        calls.append(args)
+        return fn(*args)
+
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def step_calls(step, state, centers, labels) -> tuple:
+    """(A's calls, B's calls) of one training step: the embedding's gather
+    and apply, and ``ops.gather``'s (the RGCN's neighbour rows)."""
+    from ..embedding import embedding as emb_mod
+    from ..ops import gather as gather_mod
+
+    a, b = [], []
+    with recording(emb_mod, "gather_rows", a), recording(gather_mod, "gather_rows", a), \
+            recording(emb_mod, "scatter_rows", b):
+        step(state, centers, labels, seed=0)
+    torch.cuda.synchronize()
+    return [(t.detach(), i) for t, i in a], [(t, i, r) for t, i, r in b]
+
+
+def ab_cases(gen) -> tuple:
+    """({case: (table, ids)} for A, {case: (table, ids, rows)} for B) on the
+    card: each distinct A and B call of one hetero step at
+    ``HeteroTrainConfig()`` (the typed gather's off-type slots -1, clipped
+    onto row 0, and the same slots spread over random rows, to price the
+    hot row) and of one SAGE step at ``SageTrainConfig()``, and B's masked
+    write at ``bench_scatter``'s shape (2^19 uniform ids into 4,000,000 x
+    256 f32, a repeated id's earlier slots -1)."""
+    from ..train import (HeteroTrainConfig, build_hetero, build_synthetic, hetero_train_step,
+                         train_step)
+
+    a_cases, b_cases = {}, {}
+    hcfg = HeteroTrainConfig()
+    st = build_hetero(hcfg, device="cuda", seed=0)
+    c = st.train_ids[torch.randperm(st.train_ids.numel(), generator=gen, device="cuda")[:hcfg.batch]]
+    a, b = step_calls(hetero_train_step, st, c, st.labels[c.long()])
+    seen = set()
+    for i, (t, ids) in enumerate(a):
+        key = (tuple(t.shape), ids.data_ptr())
+        if key in seen:  # the apply's m and v reads repeat its table read
+            continue
+        seen.add(key)
+        a_cases[f"hetero A{i} [{ids.numel()}] of {list(t.shape)}"] = (t, ids)
+        if bool((ids < 0).any()):
+            spread = torch.where(ids < 0, torch.randint(0, t.shape[0], ids.shape, generator=gen,
+                                                        device="cuda", dtype=ids.dtype), ids)
+            a_cases[f"hetero A{i} [{ids.numel()}] of {list(t.shape)}, -1 spread"] = (t, spread)
+    for i, (t, ids, rows) in enumerate(b):
+        if i % 3 == 0:  # a type's table write; its m and v writes are alike
+            b_cases[f"hetero B{i} [{ids.numel()}] into {list(t.shape)}"] = (t, ids, rows)
+    del st
+    cfg = SageTrainConfig()
+    st = build_synthetic(cfg, device="cuda", seed=0)
+    c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    a, b = step_calls(train_step, st, c, st.labels[c.long()])
+    for i, (t, ids) in enumerate(a[:2]):  # the gather, the apply's table read
+        a_cases[f"main A{i} [{ids.numel()}] of {list(t.shape)}"] = (t, ids)
+    t, ids, rows = b[0]
+    b_cases[f"main B0 [{ids.numel()}] into {list(t.shape)}"] = (t, ids, rows)
+    del st, a, b
+    data = torch.randn(STORE_ROWS, 256, generator=gen, device="cuda")
+    u = torch.randint(0, STORE_ROWS, (STORE_BATCH,), generator=gen, device="cuda")
+    last = torch.full((STORE_ROWS,), -1, dtype=torch.long, device="cuda").scatter_reduce_(
+        0, u, torch.arange(STORE_BATCH, device="cuda"), "amax")
+    slots = torch.where(last[u] == torch.arange(STORE_BATCH, device="cuda"), u, -1).to(torch.int32)
+    rows = torch.randn(STORE_BATCH, 256, generator=gen, device="cuda")
+    b_cases[f"store B masked [{STORE_BATCH}] into [{STORE_ROWS}, 256]"] = (data, slots, rows)
+    torch.cuda.empty_cache()
+    return a_cases, b_cases
+
+
+def device_turns(fns: dict) -> dict:
+    """Device ms of each function (a CUDA graph of 20 calls), in turns over
+    three rounds: the median and the spread."""
+    rounds = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            rounds[k].append(graph_ms(fn))
+    return {k: {"device_ms": statistics.median(v), "spread": max(v) - min(v)}
+            for k, v in rounds.items()}
+
+
+def ab_section(libs: dict, a_names, b_names, gen) -> dict:
+    """A and B as built, over tile sizes, and their variants, in turns at
+    each of :func:`ab_cases`, beside each case's bound and library call;
+    every output held bit-equal to the plain version's. ``a_names`` or
+    ``b_names`` None leaves that kernel out."""
+    a_cases, b_cases = ab_cases(gen)
+    a_cases = a_cases if a_names is not None else {}
+    b_cases = b_cases if b_names is not None else {}
+    out = {}
+
+    def a_call(t, ids, lib=None, tb=None):
+        def call():
+            saved = G.GATHER_TILE_BYTES
+            G.GATHER_TILE_BYTES = tb or saved
+            try:
+                if lib is None:
+                    return G.gather_rows(t, ids)
+                with launching(G.ROW_GATHER, lib):
+                    return G.gather_rows(t, ids)
+            finally:
+                G.GATHER_TILE_BYTES = saved
+        return call
+
+    for case, (t, ids) in a_cases.items():
+        rb, m = t.shape[1] * t.element_size(), ids.numel()
+        clipped = ids.long().clamp(0, t.shape[0] - 1)
+        ref = G.gather_rows_plain(t, ids)
+        fns = {"A": a_call(t, ids),
+               **{f"A tiles of {tb // 1024} KB": a_call(t, ids, tb=tb) for tb in A_TILE_BYTES},
+               **{name: a_call(t, ids, libs[name]) for name in a_names},
+               "index_select": lambda: torch.index_select(t, 0, clipped)}
+        for name, fn in fns.items():
+            if name != "index_select" and not torch.equal(fn().view(torch.uint8),
+                                                          ref.view(torch.uint8)):
+                raise SystemExit(f"kernel_variants: {name} differs from A's plain version ({case})")
+        nbytes = ids.element_size() * m + torch.unique(clipped).numel() * rb + m * rb
+        out[case] = {"bound_ms": nbytes / 3.35e12 * 1e3, "tile": G.gather_tile(rb),
+                     **device_turns(fns)}
+        del ref, clipped
+        torch.cuda.empty_cache()
+
+    def b_call(t, ids, rows, lib=None, tile=None):
+        def call():
+            plan = G.scatter_tile
+            if tile is not None:
+                G.scatter_tile = lambda row_bytes: tile
+            try:
+                if lib is None:
+                    return G.scatter_rows(t, ids, rows)
+                with launching(G.ROW_SCATTER, lib):
+                    return G.scatter_rows(t, ids, rows)
+            finally:
+                G.scatter_tile = plan
+        return call
+
+    for case, (t, ids, rows) in b_cases.items():
+        rb = t.shape[1] * t.element_size()
+        ok = (ids >= 0) & (ids < t.shape[0])
+        vids, vrows = ids[ok].long(), rows[ok]
+        ref = G.scatter_rows_plain(t.clone(), ids, rows)
+        variants = {"B": (None, None),
+                    **{f"B tiles of {n} ids": (None, n) for n in B_TILE_IDS},
+                    **{name: (libs[name], None) for name in b_names}}
+        for name, v in variants.items():
+            if name.startswith("probe"):
+                continue
+            t2 = t.clone()
+            b_call(t2, ids, rows, *v)()
+            if not torch.equal(t2.view(torch.uint8), ref.view(torch.uint8)):
+                raise SystemExit(f"kernel_variants: {name} differs from B's plain version ({case})")
+            del t2
+        fns = {name: b_call(t, ids, rows, *v) for name, v in variants.items()}
+        fns["index_copy_"] = lambda: t.index_copy_(0, vids, vrows)
+        nbytes = ids.element_size() * ids.numel() + 2 * vids.numel() * rb
+        out[case] = {"bound_ms": nbytes / 3.35e12 * 1e3, "tile": G.scatter_tile(rb),
+                     "valid": vids.numel(), **device_turns(fns)}
+        del ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
-    ap.add_argument("--parts", nargs="+", choices=("G", "J", "K"), default=("G", "J", "K"))
+    ap.add_argument("--parts", nargs="+", choices=("A", "B", "G", "J", "K"),
+                    default=("A", "B", "G", "J", "K"))
     ap.add_argument("--k-parent", default=None,
                     help="another tree's sample_weighted.cu, built and timed beside K, with "
                          "the stage design's probes applied to it")
@@ -625,7 +900,14 @@ def main(argv=None) -> int:
         pv, st = k_stage_probes(parent)
         kv.update({"K parent": parent, **{f"{k} (parent)": v for k, v in pv.items()}})
         stale += [f"{k} (parent)" for k in st]
-    variants = {**gv, **jv, **kv}
+    av, bv = {}, {}
+    if "A" in args.parts:
+        av, st = a_variants(read("row_gather.cu"))
+        stale += st
+    if "B" in args.parts:
+        bv, st = b_variants(read("row_scatter.cu"), read("row_scatter.cuh"))
+        stale += st
+    variants = {**gv, **jv, **kv, **av, **bv}
     libs, logs = build(variants) if variants else ({}, {})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -650,6 +932,14 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
+
+    if "A" in args.parts or "B" in args.parts:
+        out["ptxas"].update({"A": ptxas(built_log("row_gather.cu"), "row_gather_kernel"),
+                             "B": ptxas(built_log("row_scatter.cu"), "row_scatter_tile"),
+                             **{name: ptxas(logs[name], "row_") for name in {**av, **bv}}})
+        out["AB"] = ab_section(libs, list(av) if "A" in args.parts else None,
+                               list(bv) if "B" in args.parts else None, gen)
+        torch.cuda.empty_cache()
 
     if "J" in args.parts:
         n, B = 4_000_000, 1 << 19
