@@ -28,7 +28,8 @@ the examples under the launcher and the multichip dry run. In order:
 4. holds kernels A-D against their plain PyTorch versions on exactly those
    tensors (plus A in bf16 and D as a sum; A and B bit for bit), and times
    kernel, plain version and one PyTorch library call computing the same
-   function (A and B also by device time). Kernel C is the
+   function (A, B and D also by device time, each call's share of its
+   bound printed; D also at ``bench_spmm``'s call). Kernel C is the
    whole sampler hop (``sample_hop_uniform``): bit-equal to its plain
    version on all five ``SampleResult`` fields on the step's two hops and on
    graphs with rows of degree 0, K and K + 1, a hub and out-of-range
@@ -331,7 +332,8 @@ and times them through entry points that every tree of the port with the
 row store has (:func:`paired_times`; parts ``steps``, ``store``, ``sweep``,
 ``spmm``, ``sddmm``, ``hetero`` (the hetero step and each of its A and B
 calls by device time), ``rows`` (the same for the main step's A and B
-calls and ``[store]``'s masked B), all by default; ``weighted``, uniform
+calls and ``[store]``'s masked B), ``agg`` (kernel D's calls (a)-(f) by
+device time, and its backward profiled), all by default; ``weighted``, uniform
 and weighted steps in turns, only when named), so that the same function also times
 another tree: run it from that tree's root as ``python3 -c "import runpy,
 sys; sys.argv = ['chip_smoke.py', '--paired-times', 'store', 'spmm'];
@@ -762,12 +764,39 @@ def check_sample_hop(calls, gen):
     return errs, times
 
 
+def agg_bound(x, nbr, mask):
+    """Kernel D's bound for one call: the ids and mask read once (5 bytes a
+    slot), each distinct valid neighbour row read once and each output row
+    written once; one f32 add a valid slot and column."""
+    B, K = nbr.shape
+    rb = x.shape[1] * x.element_size()
+    uniq = torch.unique(nbr[mask].long().clamp(0, x.shape[0] - 1)).numel()
+    return bound_ms(5 * B * K + uniq * rb + B * rb, int(mask.sum()) * x.shape[1])
+
+
+def agg_tol(ref, K, dtype):
+    """D against its plain version: both add up to K f32 values, in other
+    orders, so K f32 ulps of the largest output; in bf16 both round the f32
+    sum, one bf16 ulp apart at most."""
+    scale = max(1.0, ref.float().abs().max().item())
+    return K * F32_EPS * scale + (BF16_EPS * scale if dtype == torch.bfloat16 else 0.0)
+
+
+def agg_library(x, nbr, mask, mean):
+    """``embedding_bag`` of the same function: the masked slots weigh 0,
+    the mean's valid ones 1 / count."""
+    w = mask.to(x.dtype)
+    if mean:
+        w = w / w.sum(dim=1, keepdim=True).clamp(min=1.0)
+    idx = nbr.long().clamp(0, x.shape[0] - 1)
+    return lambda: F.embedding_bag(idx, x, mode="sum", per_sample_weights=w)
+
+
 def check_neighbor_agg(calls):
-    """Kernel D on each layer's aggregation, as called (mean) and as a sum,
-    in f32 and bf16. Tolerance: the kernel and the plain version add up to K
-    f32 values in other orders, so they may differ by K f32 ulps of the
-    largest output; in bf16 both round the f32 sum, one bf16 ulp apart at
-    most."""
+    """Kernel D on each call, as made and as the other of sum and mean, in
+    f32 and bf16, within :func:`agg_tol`; each call timed by CUDA events
+    and by device time beside its bound, its plain version and
+    ``embedding_bag``."""
     errs, times = [], []
     for i, (x, nbr, mask, mean) in enumerate(calls):
         B, K = nbr.shape
@@ -775,25 +804,133 @@ def check_neighbor_agg(calls):
             xd = x.to(dt)
             for m in (mean, not mean):
                 ref = S.neighbor_reduce_plain(xd, nbr, mask, m)
-                scale = max(1.0, ref.float().abs().max().item())
-                tol = K * F32_EPS * scale + (BF16_EPS * scale if dt == torch.bfloat16 else 0.0)
+                tol = agg_tol(ref, K, dt)
                 err = max_err(S.neighbor_reduce(xd, nbr, mask, m), ref)
                 require(err <= tol, f"neighbor_agg {dt} mean={m} err {err} > tol {tol}")
                 errs.append({"case": f"layer{i} {str(dt)[6:]} {'mean' if m else 'sum'}",
                              "max_abs_err": err, "tol": tol})
-        w = mask.float()
-        if mean:
-            w = w / w.sum(dim=1, keepdim=True).clamp(min=1.0)
-        idx = nbr.long()
-        rb = x.shape[1] * x.element_size()
-        uniq = torch.unique(nbr[mask]).numel()
         times.append(timings(
             f"layer{i} [{B}, {K}] over [{x.shape[0]}, {x.shape[1]}]",
             lambda: S.neighbor_reduce(x, nbr, mask, mean),
             lambda: S.neighbor_reduce_plain(x, nbr, mask, mean),
-            lambda: F.embedding_bag(idx, x, mode="sum", per_sample_weights=w),
-            bound_ms(5 * B * K + uniq * rb + B * rb, int(mask.sum()) * x.shape[1])))
+            agg_library(x, nbr, mask, mean), agg_bound(x, nbr, mask), device=True))
+        times[-1]["plain_device_ms"] = graph_ms(lambda: S.neighbor_reduce_plain(x, nbr, mask, mean))
     return errs, times
+
+
+AGG_BENCH = (1 << 17, 1 << 16, 16)  # bench_spmm's rows, centres and K (bench.py:375)
+
+
+def agg_bench_call(gen):
+    """``bench_spmm``'s call: [2^16, 16] uniform ids over x [2^17, 256] f32
+    (random here, ones there), every slot valid, mean."""
+    n, B, K = AGG_BENCH
+    x = torch.randn(n, 256, generator=gen, device="cuda")
+    nbr = torch.randint(0, n, (B, K), generator=gen, device="cuda", dtype=torch.int32)
+    return x, nbr, torch.ones(B, K, dtype=torch.bool, device="cuda"), True
+
+
+def agg_calls(gen):
+    """Kernel D's calls (a)-(f), ``{name: (x, nbr, mask, mean)}``: (a) and
+    (b) the SAGE step's two layers at ``SageTrainConfig()``, (c) the
+    sampled GCN's last layer (16-wide rows), (d) ``bench_spmm_sampled``'s
+    block, (e) ``bench_spmm``'s, (f) call (a) in bf16. Through entry points
+    every tree of the port has."""
+    cfg = wt.SageTrainConfig()
+    out = {}
+    for tag, kw in (("sage", {}), ("gcn", {"model_type": "gcn", "degree_mode": "block"})):
+        st = wt.build_synthetic(dataclasses.replace(cfg, **kw), device="cuda", seed=0)
+        c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        d = captured_step(wt.train_step, st, c, st.labels[c.long()])[0]["D"]
+        if tag == "sage":
+            out["a"], out["b"] = d
+            backward = agg_backward(st, c, st.labels[c.long()], d)
+        else:
+            out["c"] = next(call for call in d if call[0].shape[1] == cfg.num_classes)
+        del st, d
+        torch.cuda.empty_cache()
+    x, nbr, msk = sampled_agg_block()[:3]
+    out["d"] = (x, nbr, msk, True)
+    out["e"] = agg_bench_call(gen)
+    x, nbr, msk, mean = out["a"]
+    out["f"] = (x.to(torch.bfloat16), nbr, msk, mean)
+    return out, backward
+
+
+def agg_backward(st, c, y, calls, steps=5):
+    """D's backward (``NeighborReduce.backward``: the [B·K, D] f32 ``edges``
+    tensor, then ``index_add_``) on the SAGE step: the device ms a step that
+    ``torch.profiler`` gives its autograd node over ``steps`` steps (beside
+    the step's device ms of every kernel), and its device time alone at
+    each of the step's calls (:func:`graph_ms`, a random cotangent)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wt.train_step(st, c, y, seed=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            wt.train_step(st, c, y, seed=0)
+        torch.cuda.synchronize()
+
+    def dev(e):  # microseconds; cuda_time_total before device_time_total
+        return e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
+
+    out = {"profiled_ms_a_step": {e.key: dev(e) / steps / 1e3 for e in prof.key_averages()
+                                  if "NeighborReduceBackward" in e.key},
+           "step_kernels_ms": sum(dev(e) for e in prof.key_averages()
+                                  if e.device_type == torch.autograd.DeviceType.CUDA)
+           / steps / 1e3, "calls": []}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    for x, nbr, mask, mean in calls:
+        ctx = type("Ctx", (), {"saved_tensors": (nbr, mask), "mean": mean, "x_shape": x.shape})
+        ct = torch.randn(nbr.shape[0], x.shape[1], generator=gen, device="cuda")
+        out["calls"].append({"shape": [nbr.shape[0], nbr.shape[1], x.shape[1]],
+                             "device_ms": graph_ms(lambda: S.NeighborReduce.backward(ctx, ct)),
+                             "edges_bytes": nbr.numel() * x.shape[1] * 4})
+    log(f"[agg] D's backward: profiled {out['profiled_ms_a_step']} ms a step (the step's kernels "
+        f"{out['step_kernels_ms']:.4f} ms); alone, device ms by call "
+        f"{[round(t['device_ms'], 5) for t in out['calls']]}")
+    return out
+
+
+def agg_times(calls, rounds=3):
+    """Each of :func:`agg_calls` held to its plain version (:func:`agg_tol`)
+    and timed by device time (:func:`graph_ms`), the calls in turns over
+    ``rounds`` rounds (median and spread), beside the bound and the device
+    times of the plain version and ``embedding_bag``; with D's plan where
+    the tree has one."""
+    out = {}
+    plan = getattr(S, "agg_plan", None)
+    for name, (x, nbr, mask, mean) in calls.items():
+        ref = S.neighbor_reduce_plain(x, nbr, mask, mean)
+        err = max_err(S.neighbor_reduce(x, nbr, mask, mean), ref)
+        tol = agg_tol(ref, nbr.shape[1], x.dtype)
+        require(err <= tol, f"[paired] D call ({name}) err {err} > tol {tol}")
+        b_ms, by = agg_bound(x, nbr, mask)
+        out[name] = {"case": f"[{nbr.shape[0]}, {nbr.shape[1]}] over [{x.shape[0]}, "
+                             f"{x.shape[1]}] {str(x.dtype)[6:]} {'mean' if mean else 'sum'}",
+                     "valid": int(mask.sum()), "max_abs_err": err, "tol": tol,
+                     "bound_ms": b_ms, "bound_by": by, "device_rounds": [],
+                     "library_device_ms": graph_ms(agg_library(x, nbr, mask, mean)),
+                     "plain_device_ms": graph_ms(
+                         lambda: S.neighbor_reduce_plain(x, nbr, mask, mean))}
+        if plan is not None:
+            rb = x.shape[1] * x.element_size()
+            out[name]["plan"] = plan(nbr.shape[1], rb, G.vector_bytes(rb, x.data_ptr()))
+    for _ in range(rounds):
+        for name, (x, nbr, mask, mean) in calls.items():
+            out[name]["device_rounds"].append(graph_ms(
+                lambda: S.neighbor_reduce(x, nbr, mask, mean)))
+    for t in out.values():
+        t["device_ms"] = statistics.median(t["device_rounds"])
+        t["spread"] = max(t["device_rounds"]) - min(t["device_rounds"])
+        t["bound_share"] = t["bound_ms"] / t["device_ms"]
+    log("[agg] D calls, device ms (bound share; bound, embedding_bag device ms): "
+        + "; ".join(f"({k}) {t['case']} {t['device_ms']:.5f} ({t['bound_share']:.3f}; "
+                    f"{t['bound_ms']:.5f}, {t['library_device_ms']:.5f})" for k, t in out.items()))
+    return out
 
 
 def time_host_gather(case, table, slots, link, kw=None):
@@ -1519,7 +1656,7 @@ def fg_sddmm_phase(g):
 
 PAIRED_STEPS = 30       # timed device-memory steps of a paired run
 PAIRED_HOST_STEPS = 10  # timed host-tier steps of a paired run
-PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm", "hetero", "rows")
+PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm", "hetero", "rows", "agg")
 OWN_PARTS = ("weighted",)  # this tree's entry points only, never run by default
 
 
@@ -1551,6 +1688,8 @@ def paired_times(parts=PAIRED_PARTS):
     * ``rows``: the same for the device-memory step's 4 A and 3 B calls at
       ``SageTrainConfig()``, and B's masked write of ``[store]``
       (``ShardedTable.scatter`` of 2^19 uniform ids into 4,000,000 x 256);
+    * ``agg``: kernel D at its calls (a)-(f) (:func:`agg_calls`), each
+      checked and timed by device time, in turns (:func:`agg_times`);
     * ``weighted`` (named only; trees before weighted sampling lack it):
       PAIRED_STEPS uniform and weighted device-memory steps in turns
       (uniform, weighted, weighted, uniform) on the same graph, table and
@@ -1560,7 +1699,9 @@ def paired_times(parts=PAIRED_PARTS):
     secs = kernels.build_all()
     dev = torch.device("cuda")
     out = {"build_s": max(secs.values()), "device": torch.cuda.get_device_name(0),
-           "parts": list(parts)}
+           "smi": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"], capture_output=True,
+                                 text=True).stdout.strip(), "parts": list(parts)}
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     cfg = wt.SageTrainConfig()
@@ -1598,6 +1739,11 @@ def paired_times(parts=PAIRED_PARTS):
                 "step_median_ms", "step_p90_ms", "sample_median_ms", "busy_ms")},
                 "sample_host_enqueue_ms": host_ms, "sample_cuda_ms": cuda_ms(sample)})
         del states
+        torch.cuda.empty_cache()
+    if "agg" in parts:
+        calls, out["agg_backward"] = agg_calls(gen)
+        out["agg"] = agg_times(calls)
+        del calls
         torch.cuda.empty_cache()
     if "hetero" in parts:
         hcfg = wt.HeteroTrainConfig()
@@ -2627,16 +2773,12 @@ def weighted_parity():
         f"(tol {tol})")
 
 
-def sampled_agg_phase():
-    """``[sampled_agg]``: ``padded_reduce_windowed`` at
-    ``bench_spmm_sampled``'s shape (``bench.py:477-545``): the deepest hop
-    of a (10, 15) sample of 1,024 sorted centres over
+def sampled_agg_block():
+    """``bench_spmm_sampled``'s block (``bench.py:477-545``): the deepest
+    hop of a (10, 15) sample of 1,024 sorted centres over
     ``clustered_csr(2,000,000, 16, 192)``, the centres drawn as the bench
-    draws them, x [U, 256] f32 random, the bench's per-run windows, mean.
-    One D launch, bit-equal to ``padded_reduce`` (the same kernel) and
-    within K f32 ulps of the plain version; its gradient runs; timed beside
-    ``padded_reduce``."""
-    t0 = time.perf_counter()
+    draws them, x [U, 256] f32 random, the bench's per-run windows. Returns
+    (x, nbr, mask, run bounds, windows, edges)."""
     n = 2_000_000
     g = wt.clustered_csr(n, 16, 192, seed=0)
     rs = np.random.RandomState(0)  # the bench's draws after its graph's
@@ -2649,12 +2791,22 @@ def sampled_agg_phase():
     hop = ml.hops[L]
     rb = ml.run_bounds(L)
     wins = tuple(min(-(-min(b2 - b1, 1024) // 128) * 128, 1024) for b1, b2 in zip(rb, rb[1:]))
-    U = rb[-1]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    x = torch.randn(U, 256, generator=gen, device="cuda")
-    nbr, msk = hop.nbr_idx, hop.mask
-    log(f"[sampled_agg] {g.edge_count} edges; block [{nbr.shape[0]}, {nbr.shape[1]}] over "
+    x = torch.randn(rb[-1], 256, generator=gen, device="cuda")
+    return x, hop.nbr_idx, hop.mask, rb, wins, g.edge_count
+
+
+def sampled_agg_phase():
+    """``[sampled_agg]``: ``padded_reduce_windowed`` at
+    ``bench_spmm_sampled``'s shape (:func:`sampled_agg_block`), mean. One D
+    launch, bit-equal to ``padded_reduce`` (the same kernel) and within K
+    f32 ulps of the plain version; its gradient runs; timed beside
+    ``padded_reduce``."""
+    t0 = time.perf_counter()
+    x, nbr, msk, rb, wins, n_edges = sampled_agg_block()
+    U = rb[-1]
+    log(f"[sampled_agg] {n_edges} edges; block [{nbr.shape[0]}, {nbr.shape[1]}] over "
         f"[{U}, 256], run bounds {rb}, windows {wins}, {int(msk.sum())} edges; built in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -2674,8 +2826,7 @@ def sampled_agg_phase():
     xg = x.clone().requires_grad_()
     wt.ops.padded_reduce_windowed(xg, nbr, msk, "mean", run_bounds=rb, windows=wins).sum().backward()
     require(bool(torch.isfinite(xg.grad).all()), "non-finite gradient of padded_reduce_windowed")
-    rb_ = 256 * 4
-    uniq = torch.unique(nbr[msk]).numel()
+
     def padded():
         return wt.ops.padded_reduce(x, nbr, msk, "mean")
 
@@ -2683,13 +2834,14 @@ def sampled_agg_phase():
          "tol": tol, "ms": cuda_ms(windowed), "device_ms": graph_ms(windowed),
          "padded_reduce_ms": cuda_ms(padded), "padded_reduce_device_ms": graph_ms(padded),
          "plain_ms": cuda_ms(lambda: S.neighbor_reduce_plain(x, nbr, msk, True), 5),
-         "bound_ms": bound_ms(5 * nbr.numel() + uniq * rb_ + nbr.shape[0] * rb_,
-                              int(msk.sum()) * 256)[0]}
+         "bound_ms": agg_bound(x, nbr, msk)[0]}
+    t["bound_share"] = t["bound_ms"] / t["device_ms"]
     log(f"[sampled_agg] padded_reduce_windowed (D): one launch, bit-equal to padded_reduce, err "
         f"{err} (tol {tol}) against the plain version; {t['ms']} ms by CUDA events, device "
         f"{t['device_ms']} ms (padded_reduce {t['padded_reduce_ms']}, device "
-        f"{t['padded_reduce_device_ms']}), plain {t['plain_ms']}, bound {t['bound_ms']}")
-    del g, ml, x, xg
+        f"{t['padded_reduce_device_ms']}), plain {t['plain_ms']}, bound {t['bound_ms']} "
+        f"(share {t['bound_share']:.3f})")
+    del x, xg
     torch.cuda.empty_cache()
     return t
 
@@ -5383,9 +5535,14 @@ def main():
         require(calls[key], f"kernel {kern.name} was not called by the main path")
         checks[key] = (kern, fn(calls[key]))
         log(f"[check] {kern.name}: {json.dumps(checks[key][1][0])}")
-        if key in "AB":
+        if key in "ABD":
             log_device_calls("check", kern, checks[key][1][1])
     del calls
+    # kernel D at bench_spmm's call as well
+    agg_bench = check_neighbor_agg([agg_bench_call(gen)])
+    for e in agg_bench[0] + agg_bench[1]:
+        e["case"] = "bench_spmm " + e["case"]
+    log_device_calls("check", S.NEIGHBOR_AGG, agg_bench[1])
 
     small_parity()
     weighted_parity()
@@ -5486,8 +5643,11 @@ def main():
     a["new_step_summaries"] = {t: {k: v for k, v in s.items() if k != "launches"}
                                for t, s in new_steps.items()}
     d = next(e for e in out if e["name"] == S.NEIGHBOR_AGG.name)  # D gains the windowed call
-    d.update(sampled_agg=sagg)
-    d["checks"] = d["checks"] + [{k: sagg[k] for k in ("case", "max_abs_err", "tol")}]
+    d.update(sampled_agg=sagg, bench_spmm=agg_bench[1][0])
+    d["checks"] = (d["checks"] + [{k: sagg[k] for k in ("case", "max_abs_err", "tol")}]
+                   + agg_bench[0])
+    d["max_abs_err"] = max(c["max_abs_err"] for c in d["checks"])
+    d["tol"] = max(c["tol"] for c in d["checks"])
     out.append(kernel_entry(H.HOST_GATHER, host_launches, host_errs["E"] + bench_errs,
                             host_times["E"], steps=HOST_STEPS, bench=bench, link=link))
     out.append(kernel_entry(H.HOST_SCATTER, host_launches, host_errs["F"], host_times["F"],

@@ -337,6 +337,138 @@ def test_neighbor_reduce_matches_plain(dev, dtype, D, mean):
     assert not out[0].any()
 
 
+def _agg_sequential(x, nbr, mask, mean):
+    """Kernel D's arithmetic on the CPU: an f32 sum in ascending k, each
+    masked slot adding +0 (the kernel skips it: the same bits, as its sum
+    starts at +0 and never reaches -0), the mean a correctly rounded f32
+    division, then x's dtype (round to nearest even)."""
+    idx = nbr.long().clamp(0, x.shape[0] - 1)
+    acc = torch.zeros(nbr.shape[0], x.shape[1])
+    for k in range(nbr.shape[1]):
+        acc = acc + torch.where(mask[:, k:k + 1], x[idx[:, k]].float(), 0.0)
+    if mean:
+        acc = acc / mask.sum(dim=1, keepdim=True).clamp(min=1).float()
+    return acc.to(x.dtype)
+
+
+def _agg_block(U, B, K, seed, valid=0.8):
+    """ids over [-3, U + 3) (out of range clipped), a share ``valid`` of the
+    slots valid, centre 0 with none and the last (where B > 1) with all."""
+    g = _gen(seed)
+    nbr = torch.randint(-3, U + 3, (B, K), generator=g, dtype=torch.int32)
+    mask = torch.rand(B, K, generator=g) < valid
+    mask[-1] = True
+    mask[0] = False
+    return nbr, mask
+
+
+def _check_agg(dev, x, nbr, mask, mean, x_dev=None):
+    """D on the card: one launch, bit-equal to :func:`_agg_sequential` and
+    within K f32 ulps (plus one bf16 ulp) of the plain version."""
+    before = S.NEIGHBOR_AGG.launches
+    out = S.neighbor_reduce(x.to(dev) if x_dev is None else x_dev, nbr.to(dev), mask.to(dev),
+                            mean).cpu()
+    assert S.NEIGHBOR_AGG.launches == before + 1
+    assert out.dtype == x.dtype and out.shape == (nbr.shape[0], x.shape[1])
+    assert torch.equal(_bits(out), _bits(_agg_sequential(x, nbr, mask, mean)))
+    ref = S.neighbor_reduce_plain(x, nbr, mask, mean)
+    scale = max(1.0, ref.float().abs().max().item())
+    tol = nbr.shape[1] * F32_EPS * scale + (BF16_EPS * scale if x.dtype == torch.bfloat16 else 0.0)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert not out[0].any()
+    return out
+
+
+AGG_ROW_BYTES = [4, 12, 28, 64, 128, 192, 512, 1024, 1028]
+
+
+@pytest.mark.parametrize("row_bytes", AGG_ROW_BYTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 10, 15, 31, 32, 33, 64])
+def test_neighbor_reduce_widths_and_fanouts(dev, row_bytes, dtype, K):
+    """Rows of 4..1028 bytes (16-, 8-, 4- and 2-byte vectors), K either side
+    of a pass of 32 slots, sum and mean, all-masked and full centres, ids
+    out of range."""
+    U, B = 500, 301
+    D = row_bytes // torch.empty(0, dtype=dtype).element_size()
+    x = torch.randn(U, D, generator=_gen(row_bytes + K)).to(dtype)
+    nbr, mask = _agg_block(U, B, K, row_bytes * K)
+    for mean in (False, True):
+        _check_agg(dev, x, nbr, mask, mean)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 7, 33, 1000, 4097, 70000])
+@pytest.mark.parametrize("D", [256, 16])
+def test_neighbor_reduce_batch_sizes(dev, B, D):
+    """B from 1 to 70,000: 1 KB rows in two 512-byte slices, 64-byte rows
+    two centres a warp, the last warp partly past the batch."""
+    U, K = 3000, 15
+    x = torch.randn(U, D, generator=_gen(B))
+    nbr, mask = _agg_block(U, B, K, B + 1)
+    for mean in (True, False):
+        out = _check_agg(dev, x, nbr, mask, mean)
+    if B > 1:
+        assert torch.equal(out[-1], _agg_sequential(x, nbr[-1:], mask[-1:], False)[0])
+
+
+@pytest.mark.parametrize("offset_elems,vec", [(256, 16), (1, 4), (2, 8)])
+def test_neighbor_reduce_of_a_view_at_an_offset(dev, offset_elems, vec):
+    """x a row, one or two elements into its storage: 16-, 4- or 8-byte
+    vectors."""
+    U, D, B, K = 2000, 256, 5000, 15
+    base = torch.randn(U + 1, D, generator=_gen(offset_elems)).view(-1)
+    x_dev = base.to(dev)[offset_elems:offset_elems + U * D].view(U, D)
+    out_dev = torch.empty(B, D, device=dev)
+    assert G.vector_bytes(D * 4, x_dev.data_ptr(), out_dev.data_ptr()) == vec
+    nbr, mask = _agg_block(U, B, K, 3)
+    x = base[offset_elems:offset_elems + U * D].view(U, D)
+    for mean in (False, True):
+        _check_agg(dev, x, nbr, mask, mean, x_dev=x_dev)
+
+
+@pytest.mark.parametrize("case,plan", [
+    ("1 KB rows, 16 lanes a centre, 4 slices", (16, 4)),
+    ("1 KB rows, 8 lanes a centre, 8 slices", (8, 8)),
+    ("64-byte rows, 4 lanes a centre", (4, 1)),
+    ("64-byte rows, 8 lanes a centre", (8, 1)),
+    ("64-byte rows, a warp a centre", (32, 1)),
+    ("64-byte rows, 2 lanes a centre, 2 slices", (2, 2)),
+])
+def test_neighbor_reduce_forced_routes(dev, monkeypatch, case, plan):
+    """Each route forced on a call its rule would send elsewhere: the same
+    bits as the chosen route (both add in ascending k), one launch."""
+    U, B, K = 4000, 3000, 15
+    D = 256 if case.startswith("1 KB") else 16
+    x = torch.randn(U, D, generator=_gen(D))
+    nbr, mask = _agg_block(U, B, K, 5)
+    chosen = S.neighbor_reduce(x.to(dev), nbr.to(dev), mask.to(dev), True).cpu()
+    assert S.agg_plan(K, D * 4, 16) != plan
+    monkeypatch.setattr(S, "agg_plan", lambda *a: plan)
+    forced = _check_agg(dev, x, nbr, mask, True)
+    assert torch.equal(_bits(forced), _bits(chosen))
+
+
+def test_neighbor_reduce_refuses_a_plan_that_misses_the_row(dev, monkeypatch):
+    """A plan whose slices do not cover the row never launches."""
+    x = torch.randn(100, 256, device=dev)
+    nbr, mask = _agg_block(100, 10, 5, 6)
+    monkeypatch.setattr(S, "agg_plan", lambda *a: (32, 1))  # 32 of 64 vectors
+    before = S.NEIGHBOR_AGG.launches
+    with pytest.raises(CudaError):
+        S.neighbor_reduce(x, nbr.to(dev), mask.to(dev), True)
+    assert S.NEIGHBOR_AGG.launches == before
+
+
+def test_neighbor_reduce_is_deterministic(dev):
+    """Two runs of the step's first-layer shape give the same bits."""
+    U, B, K = 20000, 11264, 15
+    x = torch.randn(U, 256, generator=_gen(13)).to(dev)
+    nbr, mask = _agg_block(U, B, K, 14)
+    nbr, mask = nbr.to(dev), mask.to(dev)
+    a = S.neighbor_reduce(x, nbr, mask, True)
+    assert torch.equal(_bits(a), _bits(S.neighbor_reduce(x, nbr, mask, True)))
+
+
 def test_neighbor_reduce_grad_matches_cpu(dev):
     x = torch.randn(300, 64, generator=_gen(9))
     nbr = torch.randint(0, 300, (80, 10), generator=_gen(10), dtype=torch.int32)

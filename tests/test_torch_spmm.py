@@ -151,3 +151,101 @@ def test_padded_reduce_windowed_contract():
         reduce = args.pop("reduce")
         with pytest.raises(InvalidInput):
             ts.padded_reduce_windowed(tx, tn, tm, reduce, **args)
+
+
+# kernel D's plan (ops.spmm_kernels.agg_plan): (lanes a centre, slices a row)
+@pytest.mark.parametrize("K,row_bytes,vec_bytes,plan", [
+    (15, 1024, 16, (32, 2)),   # the SAGE step's first layer: two 512-byte slices a row
+    (10, 1024, 16, (32, 2)),   # its second
+    (10, 64, 16, (16, 1)),     # GCN's last layer: 2 centres a warp, K's slots in one pass
+    (16, 1024, 16, (32, 2)),   # bench_spmm
+    (15, 512, 16, (32, 1)),    # a bf16 row of 256: one slice
+    (15, 4096, 16, (32, 8)),
+    (40, 64, 16, (32, 1)),     # K > 32: a warp a centre, passes of 32 slots
+    (1, 4, 4, (1, 1)),         # one slot of 4 bytes: 32 centres a warp
+    (3, 48, 16, (4, 1)),       # 3 vectors, 3 slots: 8 centres a warp
+    (15, 28, 4, (16, 1)),      # D = 7 f32, 4-byte vectors
+    (15, 2, 2, (16, 1)),       # D = 1 bf16
+    (15, 1028, 4, (32, 9)),    # D = 257 f32: 257 vectors in 9 slices
+])
+def test_agg_plan_cases(K, row_bytes, vec_bytes, plan):
+    assert tk.agg_plan(K, row_bytes, vec_bytes) == plan
+
+
+@pytest.mark.parametrize("row_bytes", [2, 4, 8, 12, 28, 64, 100, 192, 256, 512, 1024, 1028, 2048,
+                                       5000])
+@pytest.mark.parametrize("K", [1, 10, 15, 32, 33, 64])
+def test_agg_plan_covers_each_row_once(row_bytes, K):
+    """Every plan is one the kernel takes (csrc/neighbor_agg.cu's entry): a
+    power of two of lanes to 32, as many as the row's vectors or K's slots
+    below 32, in one slice there, and slices that cover the row with none
+    empty."""
+    for vec in (16, 8, 4, 2):
+        if row_bytes % vec:
+            continue
+        vpr = row_bytes // vec
+        lanes, slices = tk.agg_plan(K, row_bytes, vec)
+        assert lanes in (1, 2, 4, 8, 16, 32)
+        if lanes < 32:
+            assert slices == 1 and lanes >= vpr and lanes >= min(K, 32)
+        assert (slices - 1) * lanes < vpr <= slices * lanes
+
+
+def _agg_kernel_model(x, nbr, mask, mean, plan):
+    """A Python model of kernel D's warp walk (csrc/neighbor_agg.cu) in f32:
+    groups of ``lanes`` lanes over a warp's centres, slots loaded in passes
+    of ``lanes``, the pass's valid slots taken lowest lane first from its
+    ballot (in batches of a few neighbours, which keep that order), lane t
+    of a group on vector ``slice * lanes + t``."""
+    lanes, slices = plan
+    B, K = nbr.shape
+    vpr = x.shape[1]
+    out = np.full((B, vpr), np.nan, np.float32)
+    n_warps = -(-B // (32 // lanes)) * slices
+    for w in range(n_warps):
+        first, slc = (w // slices) * (32 // lanes), w % slices
+        for g in range(32 // lanes):
+            b = first + g
+            if b >= B:
+                continue
+            cols = [c for c in range(slc * lanes, (slc + 1) * lanes) if c < vpr]
+            acc = np.zeros(len(cols), np.float32)
+            count = 0
+            for k0 in range(0, K, lanes):
+                ballot = [k for k in range(k0, min(k0 + lanes, K)) if mask[b, k]]
+                count += len(ballot)
+                for k in ballot:
+                    acc = acc + x[min(max(nbr[b, k], 0), len(x) - 1), cols]
+            if mean:
+                acc = acc / np.float32(max(count, 1))
+            assert np.isnan(out[b, cols]).all()  # no column written twice
+            out[b, cols] = acc
+    return out
+
+
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("D,K,B", [(4, 10, 37), (7, 3, 70), (16, 33, 9), (64, 15, 50),
+                                   (100, 40, 5)])
+def test_agg_kernel_model_is_the_ascending_sum(mean, D, K, B):
+    """Under the plan the wrapper picks, and under every other the kernel
+    takes, the model of the kernel's walk writes each output once and adds
+    in ascending k: bit-equal to an f32 loop over k, and within K f32 ulps
+    of the plain version."""
+    rs = np.random.RandomState(D * K)
+    U = 60
+    x = rs.randn(U, D).astype(np.float32)
+    nbr = rs.randint(-3, U + 3, (B, K)).astype(np.int32)  # some out of range: clipped
+    mask = rs.rand(B, K) < 0.7
+    mask[0] = False
+    seq = np.zeros((B, D), np.float32)
+    for k in range(K):
+        seq = seq + np.where(mask[:, k:k + 1], x[np.clip(nbr[:, k], 0, U - 1)], np.float32(0))
+    if mean:
+        seq = seq / np.maximum(mask.sum(1, keepdims=True), 1).astype(np.float32)
+    plans = {tk.agg_plan(K, D * 4, 4)}
+    plans |= {(lanes, -(-D // lanes)) for lanes in (1, 2, 4, 8, 16, 32)}
+    for plan in plans:
+        np.testing.assert_array_equal(_agg_kernel_model(x, nbr, mask, mean, plan), seq, str(plan))
+    ref = tk.neighbor_reduce_plain(torch.from_numpy(x), torch.from_numpy(nbr),
+                                   torch.from_numpy(mask), mean).numpy()
+    assert np.abs(seq - ref).max() <= K * np.finfo(np.float32).eps * max(1.0, np.abs(ref).max())

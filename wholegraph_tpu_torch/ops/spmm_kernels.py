@@ -35,7 +35,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 NEIGHBOR_AGG = kernels.Kernel(
     "neighbor_agg", "neighbor_agg.cu", "wg_neighbor_agg",
-    [_P, _L, _L, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+    [_P, _L, _L, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _P],
     replaces="wholegraph_tpu/ops/spmm_pallas.py:42",  # _fused_agg_kernel
 )
 CSR_SPMM = kernels.Kernel(
@@ -61,6 +61,29 @@ SDDMM_EDGE_CAP = 4096
 SPMM_TILE = 128
 SPMM_WINDOW = 320
 SPMM_EDGE_CAP = 3584
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+def agg_plan(K: int, row_bytes: int, vec_bytes: int) -> Tuple[int, int]:
+    """Kernel D's plan (``csrc/neighbor_agg.cu``) for centres of ``K`` slots
+    over rows of ``row_bytes`` read in vectors of ``vec_bytes``: (lanes a
+    centre, slices a row).
+
+    A centre takes as many lanes (a power of two, up to a warp's 32) as its
+    row has vectors or its slots number, so that one pass loads its ids and
+    one reads its slice, one vector a lane: a narrower row packs
+    ``32 // lanes`` centres into a warp, and a wider one is split over warps
+    in slices of 32 vectors (512 bytes at 16-byte vectors). Whole 1 KB rows
+    in one warp, 2 vectors a lane, were slower at every call measured, small
+    or large (``PERF.md`` §6, kernel D), so the number of centres does not
+    enter."""
+    vpr = row_bytes // vec_bytes
+    lanes = min(32, _pow2_at_least(max(vpr, min(K, 32))))
+    return lanes, -(-vpr // lanes)
+
 
 # edges per step of the plain versions: an unchunked [E, D] intermediate is
 # 21 GB at the bench shape (the chunking of spmm_pallas._segment_spmm_chunked)
@@ -97,13 +120,14 @@ def neighbor_reduce(x: torch.Tensor, nbr_idx: torch.Tensor, mask: torch.Tensor,
     if K == 0:
         return torch.zeros((B, D), dtype=x.dtype, device=x.device)
     check_input(x.is_contiguous(), "x must be contiguous")
+    check_input(K < 2**31, "K must be below 2^31")
     nbr_idx, mask = nbr_idx.contiguous(), mask.contiguous()
     out = torch.empty((B, D), dtype=x.dtype, device=x.device)
-    wide = 16 // x.element_size()
-    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 and D % wide == 0
-    NEIGHBOR_AGG(x.data_ptr(), x.shape[0], D, nbr_idx.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), B, K, int(mean), _DTYPE_CODE[x.dtype],
-                 wide if aligned else 1, kernels.cuda_stream(x.device))
+    row_bytes = D * x.element_size()
+    vec = vector_bytes(row_bytes, x.data_ptr(), out.data_ptr())
+    NEIGHBOR_AGG(x.data_ptr(), x.shape[0], row_bytes, nbr_idx.data_ptr(), mask.data_ptr(),
+                 out.data_ptr(), B, K, int(mean), _DTYPE_CODE[x.dtype], vec,
+                 *agg_plan(K, row_bytes, vec), kernels.cuda_stream(x.device))
     return out
 
 

@@ -1,12 +1,12 @@
-"""Design alternatives of kernels A, B, G, J and K, timed against the kernels
-as built: ``python3 -m wholegraph_tpu_torch.tools.kernel_variants [--out FILE]
-[--parts A B G J K] [--k-parent FILE]``.
+"""Design alternatives of kernels A, B, D, G, J and K, timed against the
+kernels as built: ``python3 -m wholegraph_tpu_torch.tools.kernel_variants
+[--out FILE] [--parts A B D G J K] [--k-parent FILE]``.
 
 Each variant is the current source of ``csrc/row_gather.cu`` (A; J, with
 ``direct_gather.cuh`` inlined where the variant changes it),
 ``csrc/row_scatter.cu`` (B, with ``row_scatter.cuh`` inlined where the
-variant changes it), ``csrc/csr_spmm.cu`` (G) or
-``csrc/sample_weighted.cu`` (K) with one stated change, applied by text
+variant changes it), ``csrc/neighbor_agg.cu`` (D), ``csrc/csr_spmm.cu`` (G)
+or ``csrc/sample_weighted.cu`` (K) with one stated change, applied by text
 substitution
 that must match: a variant whose text no longer matches the source is
 reported as such and not built, so the tool never holds the kernels to its
@@ -28,6 +28,22 @@ probe's, and its output is not kept.
   shared memory, B with 8 loads of ``rows`` in flight a thread; beside
   each call's bound and ``index_select`` / ``index_copy_``, by device time
   alone; a probe of B that reads its ids and writes no row.
+* D at its calls (a)-(f) of ``chip_smoke.py --paired-times agg`` (the
+  SAGE step's two layers, the sampled GCN's 16-wide last layer,
+  ``bench_spmm_sampled``'s block, ``bench_spmm``'s, the first layer in
+  bf16): D as built, under every plan it takes at the call (lanes a
+  centre and slices a row, forced over ``ops.spmm_kernels.agg_plan``),
+  and its variants: 8 and 2 row vectors in flight a lane (4 as built),
+  rolling loads (each neighbour's load issued as the one U before it is
+  added), a warp that walks its row's slices in turn (the earlier
+  kernel's order), persistent warps on 132 x 8 and 132 x 32 CTAs,
+  ordinary loads, 16-byte loads with a 256-byte L2 prefetch, kept in L2
+  (evict_last) or not kept in L1, ordinary stores, 256-thread CTAs; a
+  probe that reads no row; beside each call's bound and
+  ``embedding_bag``, by device time alone; also ``bench_spmm``'s call over
+  a table a quarter and four times as tall. ``--d-parent FILE`` builds
+  another tree's ``neighbor_agg.cu`` of the earlier design (one warp a
+  centre) beside D.
 * G at ``bench_spmm_clustered``'s shapes (``clustered_csr(2^20, 16, 192)``,
   x [2^20, 256] f32): mean, weighted sum, and the weighted sum over the
   transposed CSR; variants: two barriers a slab, rows in CSR order (no
@@ -61,7 +77,7 @@ probe's, and its output is not kept.
   path, a rank count in shared memory up to 256 edges) with that design's
   probes (centre rows only; no rank count; the count over plain weights; no
   second read of the neighbour; keys only). ``--parts`` limits the run to
-  some of A, B, G, J and K.
+  some of A, B, D, G, J and K.
 
 Every function is timed in turns, three rounds, by CUDA events (the median)
 and once as device time from a CUDA graph of 20 calls. Prints one JSON
@@ -867,11 +883,267 @@ def ab_section(libs: dict, a_names, b_names, gen) -> dict:
     return out
 
 
+_D_LOADS = "constexpr int AGG_LOAD_VECS = 4;"
+_D_THREADS = "constexpr int AGG_THREADS = 128;"
+_D_BATCH = """    for (int i = 0; i < most; i += U) {
+      int32_t row[U];
+      bool has[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        has[u] = mine != 0;
+        row[u] = __shfl_sync(FULL, id, has[u] ? __ffs(mine) - 1 : 0);
+        mine &= mine - 1;
+      }
+      V v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (has[u] && col) v[u] = load_row(x + int64_t(row[u]) * vpr + c);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (has[u] && col) add_vec(acc, v[u], Tag());
+      }
+    }
+"""
+_D_NEXT = """        has[u] = mine != 0;
+        {
+          const int32_t row = __shfl_sync(FULL, id, has[u] ? __ffs(mine) - 1 : 0);
+          mine &= mine - 1;
+          if (has[u] && col) v[u] = load_row(x + int64_t(row) * vpr + c);
+        }
+"""
+_D_ROLLING = ("""    bool has[U];
+    V v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+""" + _D_NEXT + """    }
+    for (int i = 0; i < most; i += U) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (has[u] && col) add_vec(acc, v[u], Tag());
+""" + _D_NEXT + """      }
+    }
+""")
+_D_LOAD = "        if (has[u] && col) v[u] = load_row(x + int64_t(row[u]) * vpr + c);\n"
+_D_STORE = "  __stcs(out + b * vpr + c, o);\n"
+_D_LDG = "  return __ldg(p);\n"
+_D_TASK = ("  const int64_t first = (warp / slices) << (5 - shift);  // the warp's first centre\n"
+           "  if (first >= B) return;  // the whole warp: no lane of it shuffles\n"
+           "  const int slice = int(warp % slices);\n")
+_D_TAIL = ("  if (!live || !col) return;\n", "  if (live && col) {\n")
+_D_END = ("  __stcs(out + b * vpr + c, o);\n}\n", "  __stcs(out + b * vpr + c, o);\n  }\n  }\n}\n")
+
+
+def _d_load16(ptx: str, policy: bool = False) -> str:
+    """``load_row``'s body with 16-byte vectors loaded by ``ptx`` (an L2
+    cache policy made first where ``policy``), every other width by
+    ``__ldg``."""
+    pol = ('    uint64_t pol;\n    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" '
+           ': "=l"(pol));\n') if policy else ""
+    return ("  if constexpr (sizeof(V) == 16) {\n    uint4 v;\n" + pol
+            + f'    asm("{ptx} {{%0, %1, %2, %3}}, [%4]{", %5" if policy else ""};"\n'
+            '        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p)'
+            + (', "l"(pol)' if policy else "") + ");\n    return v;\n  } else {\n"
+            "    return __ldg(p);\n  }\n")
+
+
+def _d_walk(src: str) -> str:
+    """D with each warp walking all slices of its centres' rows in turn
+    (the earlier kernel's order) instead of a warp a slice."""
+    src = _sub(src, _D_TASK, "  const int64_t first = warp << (5 - shift);\n"
+                             "  if (first >= B) return;\n"
+                             "  for (int slice = 0; slice < slices; ++slice) {\n")
+    src = _sub(_sub(src, *_D_TAIL), *_D_END)
+    return _sub(src, ">> (5 - shift)) * slices;", ">> (5 - shift));")
+
+
+def _d_persistent(src: str, ctas: int) -> str:
+    """D on a grid of at most 132 x ``ctas`` CTAs whose warps stride over
+    the (centre group, slice) tasks, as the earlier kernel's grid did."""
+    src = _sub(src, _D_TASK,
+               "  const int64_t n_tasks = ((B + (32 >> shift) - 1) >> (5 - shift)) * slices;\n"
+               "  for (int64_t task = warp; task < n_tasks;\n"
+               "       task += int64_t(gridDim.x) * (AGG_THREADS / 32)) {\n"
+               "  const int64_t first = (task / slices) << (5 - shift);\n"
+               "  const int slice = int(task % slices);\n")
+    src = _sub(_sub(src, *_D_TAIL), *_D_END)
+    return _sub(src, "<<<unsigned(blocks), ",
+                f"<<<unsigned(blocks < 132 * {ctas} ? blocks : 132 * {ctas}), ")
+
+
+def d_variants(src: str) -> tuple:
+    """Kernel D's alternatives (the module docstring lists them); a probe
+    that reads the ids and mask and no row (the ballot, shuffles and stores
+    alone)."""
+    return _each({
+        "D 8 vectors in flight a lane": lambda: _sub(src, _D_LOADS, _D_LOADS.replace("4", "8")),
+        "D 2 vectors in flight a lane": lambda: _sub(src, _D_LOADS, _D_LOADS.replace("4", "2")),
+        "D rolling loads": lambda: _sub(src, _D_BATCH, _D_ROLLING),
+        "D walks its slices in turn": lambda: _d_walk(src),
+        "D persistent warps, 132 x 8 CTAs": lambda: _d_persistent(src, 8),
+        "D persistent warps, 132 x 32 CTAs": lambda: _d_persistent(src, 32),
+        "D ordinary loads": lambda: _sub(src, _D_LOAD, _D_LOAD.replace(
+            "load_row(x + int64_t(row[u]) * vpr + c)", "x[int64_t(row[u]) * vpr + c]")),
+        "D 16-byte loads with a 256-byte L2 prefetch": lambda: _sub(
+            src, _D_LDG, _d_load16("ld.global.nc.L2::256B.v4.u32")),
+        "D 16-byte loads kept in L2 (evict_last)": lambda: _sub(
+            src, _D_LDG, _d_load16("ld.global.nc.L2::cache_hint.v4.u32", policy=True)),
+        "D 16-byte loads not kept in L1": lambda: _sub(
+            src, _D_LDG, _d_load16("ld.global.nc.L1::no_allocate.v4.u32")),
+        "D ordinary stores": lambda: _sub(src, _D_STORE, "  out[b * vpr + c] = o;\n"),
+        "D 256 threads a CTA": lambda: _sub(src, _D_THREADS, _D_THREADS.replace("128", "256")),
+        "probe: D reads no row": lambda: _sub(
+            src, _D_LOAD, "        if (has[u] && col) v[u] = V();\n"),
+    })
+
+
+D_SAMPLED_NODES = 2_000_000  # bench_spmm_sampled's graph (bench.py:477-545)
+D_BENCH = (1 << 17, 1 << 16, 16)  # bench_spmm's rows, centres and K (bench.py:375)
+
+
+def d_cases(gen) -> dict:
+    """{case: (x, nbr, mask, mean)} on the card: kernel D's calls (a)-(f) as
+    ``chip_smoke.py --paired-times agg`` builds them -- the SAGE step's two
+    layers at ``SageTrainConfig()``, the sampled GCN's last layer (16-wide
+    rows), ``bench_spmm_sampled``'s block, ``bench_spmm``'s (every slot
+    valid, mean) and call (a) in bf16."""
+    import dataclasses
+
+    from ..train import build_synthetic, train_step
+
+    cfg = SageTrainConfig()
+    out = {}
+    for tag, kw in (("sage", {}), ("gcn", {"model_type": "gcn", "degree_mode": "block"})):
+        st = build_synthetic(dataclasses.replace(cfg, **kw), device="cuda", seed=0)
+        c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        calls = []
+        with recording(S, "neighbor_reduce", calls):
+            train_step(st, c, st.labels[c.long()], seed=0)
+        calls = [(x.detach(), n, m, mean) for x, n, m, mean in calls]
+        if tag == "sage":
+            out["(a) SAGE layer 0"], out["(b) SAGE layer 1"] = calls
+            x, n, m, mean = calls[0]
+            out["(f) SAGE layer 0 bf16"] = (x.to(torch.bfloat16), n, m, mean)
+        else:
+            out["(c) GCN last layer"] = next(a for a in calls if a[0].shape[1] == cfg.num_classes)
+        del st, calls
+        torch.cuda.empty_cache()
+    n = D_SAMPLED_NODES
+    g = clustered_csr(n, 16, 192, seed=0)
+    rs = np.random.RandomState(0)  # the bench's draws after its graph's
+    rs.randint(-96, 97, int(rs.randint(8, 32, n).sum()))
+    centers = torch.from_numpy(np.sort(rs.choice(n, 1024, replace=False)).astype(np.int32)).cuda()
+    ml = g.multilayer_sample(centers, (10, 15), seed=1)
+    hop = ml.hops[1]
+    x = torch.randn(ml.run_bounds(1)[-1], 256, generator=gen, device="cuda")
+    out["(d) sampled_agg block"] = (x, hop.nbr_idx, hop.mask, True)
+    del g, ml
+    rows, B, K = D_BENCH
+    for n, tag in ((rows, ""), (rows >> 2, ", a table L2 holds"), (rows << 2, ", 4 x its rows")):
+        x = torch.randn(n, 256, generator=gen, device="cuda")
+        nbr = torch.randint(0, n, (B, K), generator=gen, device="cuda", dtype=torch.int32)
+        out["(e) bench_spmm" + tag] = (x, nbr, torch.ones(B, K, dtype=torch.bool, device="cuda"),
+                                       True)
+    torch.cuda.empty_cache()
+    return out
+
+
+_D_PARENT_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def d_parent_call(lib: ctypes.CDLL, x, nbr, mask, mean):
+    """A call of another tree's ``neighbor_agg.cu`` of the earlier design (one
+    warp a centre), bound with that tree's entry: (x, n_rows, D, nbr, mask,
+    out, B, K, mean, dtype, elements a load, stream)."""
+    fn = lib.wg_neighbor_agg
+    fn.argtypes, fn.restype = _D_PARENT_ARGS, ctypes.c_int
+    B, K = nbr.shape
+    D = x.shape[1]
+    wide = 16 // x.element_size()
+
+    def call():
+        out = torch.empty(B, D, dtype=x.dtype, device=x.device)
+        vec = wide if x.data_ptr() % 16 == 0 and D % wide == 0 else 1
+        rc = fn(x.data_ptr(), x.shape[0], D, nbr.data_ptr(), mask.data_ptr(), out.data_ptr(), B,
+                K, int(mean), int(x.dtype == torch.bfloat16), vec,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"kernel_variants: the parent's D failed with CUDA error {rc}")
+        return out
+    return call
+
+
+def d_plans(K: int, row_bytes: int, vec_bytes: int) -> list:
+    """Plans of kernel D to force at a call: every lane count from 32 down
+    to the row's vectors (or to 8 for a wide row), each with the slices
+    that cover the row."""
+    vpr = row_bytes // vec_bytes
+    low = min(S._pow2_at_least(vpr), 8)
+    return [(l, -(-vpr // l)) for l in (1, 2, 4, 8, 16, 32) if l >= low]
+
+
+def d_section(libs: dict, names: list, gen) -> dict:
+    """D as built, under each forced plan, and its variants, in turns at
+    each of :func:`d_cases`, beside each call's bound and ``embedding_bag``;
+    every output held bit-equal to the kernel's (each adds in ascending k),
+    probes excepted."""
+    out = {}
+    for case, (x, nbr, mask, mean) in d_cases(gen).items():
+        B, K = nbr.shape
+        rb = x.shape[1] * x.element_size()
+        vec = G.vector_bytes(rb, x.data_ptr())
+
+        def d_call(lib=None, plan=None):
+            def call():
+                saved = S.agg_plan
+                if plan is not None:
+                    S.agg_plan = lambda *a: plan
+                try:
+                    if lib is None:
+                        return S.neighbor_reduce(x, nbr, mask, mean)
+                    with launching(S.NEIGHBOR_AGG, lib):
+                        return S.neighbor_reduce(x, nbr, mask, mean)
+                finally:
+                    S.agg_plan = saved
+            return call
+
+        ref = d_call()()
+        fns = {"D": d_call(),
+               **{f"D plan {p}": d_call(plan=p) for p in d_plans(K, rb, vec)},
+               **{name: d_call(libs[name]) for name in names if name != "D parent"}}
+        if "D parent" in names:
+            fns["D parent"] = d_parent_call(libs["D parent"], x, nbr, mask, mean)
+        for name, fn in fns.items():
+            if not name.startswith("probe") and not torch.equal(fn().view(torch.uint8),
+                                                                ref.view(torch.uint8)):
+                raise SystemExit(f"kernel_variants: {name} differs from kernel D ({case})")
+        w = mask.to(x.dtype)
+        if mean:
+            w = w / w.sum(dim=1, keepdim=True).clamp(min=1.0)
+        idx = nbr.long()
+        fns["embedding_bag"] = lambda: torch.nn.functional.embedding_bag(
+            idx, x, mode="sum", per_sample_weights=w)
+        uniq = torch.unique(nbr[mask].long()).numel()
+        nbytes = 5 * B * K + uniq * rb + B * rb
+        out[case] = {"shape": f"[{B}, {K}] over [{x.shape[0]}, {x.shape[1]}] {x.dtype}",
+                     "bound_ms": nbytes / 3.35e12 * 1e3, "plan": S.agg_plan(K, rb, vec),
+                     **device_turns(fns)}
+        del ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
-    ap.add_argument("--parts", nargs="+", choices=("A", "B", "G", "J", "K"),
-                    default=("A", "B", "G", "J", "K"))
+    ap.add_argument("--parts", nargs="+", choices=("A", "B", "D", "G", "J", "K"),
+                    default=("A", "B", "D", "G", "J", "K"))
+    ap.add_argument("--d-parent", default=None,
+                    help="another tree's neighbor_agg.cu of the earlier design, built and timed "
+                         "beside D")
     ap.add_argument("--k-parent", default=None,
                     help="another tree's sample_weighted.cu, built and timed beside K, with "
                          "the stage design's probes applied to it")
@@ -907,7 +1179,14 @@ def main(argv=None) -> int:
     if "B" in args.parts:
         bv, st = b_variants(read("row_scatter.cu"), read("row_scatter.cuh"))
         stale += st
-    variants = {**gv, **jv, **kv, **av, **bv}
+    dv = {}
+    if "D" in args.parts:
+        dv, st = d_variants(read("neighbor_agg.cu"))
+        stale += st
+        if args.d_parent:
+            with open(args.d_parent) as f:
+                dv["D parent"] = f.read()
+    variants = {**gv, **jv, **kv, **av, **bv, **dv}
     libs, logs = build(variants) if variants else ({}, {})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -939,6 +1218,12 @@ def main(argv=None) -> int:
                              **{name: ptxas(logs[name], "row_") for name in {**av, **bv}}})
         out["AB"] = ab_section(libs, list(av) if "A" in args.parts else None,
                                list(bv) if "B" in args.parts else None, gen)
+        torch.cuda.empty_cache()
+
+    if "D" in args.parts:
+        out["ptxas"].update({"D": ptxas(built_log("neighbor_agg.cu"), "neighbor_agg"),
+                             **{name: ptxas(logs[name], "neighbor_agg") for name in dv}})
+        out["D"] = d_section(libs, list(dv), gen)
         torch.cuda.empty_cache()
 
     if "J" in args.parts:
