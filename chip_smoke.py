@@ -24,12 +24,20 @@ the examples under the launcher and the multichip dry run. In order:
    F (their bounds take the link's data-sheet peak, LINK_BYTES_PER_S);
 3. builds the full-width synthetic state (``SageTrainConfig()``: 2M nodes,
    dim 256, batch 1024, fanouts (10, 15)) and runs one step that records the
-   arguments of every kernel wrapper call;
-4. holds kernels A-D against their plain PyTorch versions on exactly those
-   tensors (plus A in bf16 and D as a sum; A and B bit for bit), and times
-   kernel, plain version and one PyTorch library call computing the same
-   function (A, B and D also by device time, each call's share of its
-   bound printed; D also at ``bench_spmm``'s call). Kernel C is the
+   arguments of every kernel wrapper call (the apply's, kernel L's, with
+   copies of the table, m and v as they were before it);
+4. holds kernels A, C, D and L against their plain PyTorch versions on
+   exactly those tensors (plus A in bf16 and D as a sum; A and L bit for
+   bit), and times kernel, plain version and one PyTorch library call
+   computing the same function (A and D also by device time, each call's
+   share of its bound printed; D also at ``bench_spmm``'s call). L, for
+   which no library call exists, is checked in ``[sparse_apply]`` at the
+   apply's calls (a)-(d) (:func:`apply_calls`: (a) the main step's own,
+   ``bench_apply``'s through the dedup path, the hetero step's three typed
+   calls, (a) over a bf16 table), each bit for bit and timed so beside the
+   parent's route (kernel A x3, the optimizer's update and kernel B x3) by
+   device time, and (b)'s whole ``apply_gradients``; each call also bit for
+   bit under the registry's other optimizers (APPLY_OTHER_OPTIMIZERS). Kernel C is the
    whole sampler hop (``sample_hop_uniform``): bit-equal to its plain
    version on all five ``SampleResult`` fields on the step's two hops and on
    graphs with rows of degree 0, K and K + 1, a hub and out-of-range
@@ -111,19 +119,20 @@ the examples under the launcher and the multichip dry run. In order:
 9a. ``[sampled_models]``: the device-memory step at ``SageTrainConfig()``'s
    full width for the sampled GCN with block and with true degrees
    (``with_degrees=True``), GAT (4 heads of 64, one in the last layer) and
-   RGCN (2 pseudo-relations): for each, one captured step whose every A, B,
-   C and D call is held against its plain version (A, B and C bit-equal, D
+   RGCN (2 pseudo-relations): for each, one captured step whose every A, C,
+   D and L call is held against its plain version (A, C and L bit-equal, D
    within K f32 ulps; D only in GCN, A also for GAT's and RGCN's neighbour
    rows), then NEW_STEPS timed steps with the counts from 0, failing unless
-   each kernel ran exactly its calls a step; median, p90, stage split, peak
-   memory and a profiled window;
+   each kernel ran exactly its calls a step (L once, B never); median, p90,
+   stage split, peak memory and a profiled window;
 9b. ``[hetero]``: ``HeteroTrainConfig()`` (the hetero example's widths,
    counts times 250: 1,000,000 papers, 375,000 authors, 50,000
    institutions, about 20M edges of 6 relations, the store under LazyAdam),
-   its numpy build timed on its own line, then as in 9a (A 14 and B 9
-   calls a step, C 2, no D), each A and B call's device ms (a CUDA graph of
+   its numpy build timed on its own line, then as in 9a (A 5 and L 3 calls
+   a step, C 2, no B or D), each A and L call's device ms (a CUDA graph of
    20 calls, :func:`graph_ms`) printed beside its bound and the library
-   call's device ms, as for the main step's A and B calls in 4;
+   call's (A) or the parent route's (L) device ms, as for the main step's
+   calls in 4;
 9c. ``[scan_epoch]``: ``train.train_epoch`` (the scanned epoch: the
    epoch's first steps eagerly, one captured step, a CUDA graph replayed
    once a batch) at ``SageTrainConfig()``'s full width, nothing cut, for
@@ -305,8 +314,9 @@ the examples under the launcher and the multichip dry run. In order:
     ``entry.dryrun_multichip(4, backend="gloo", device="cuda:0")`` with
     its six lines;
 
-then prints a ``kernels`` JSON line (A-K, G's forward and transposed
-routes apart, B's masked launches beside its own, A-D's launches over the
+then prints a ``kernels`` JSON line (A-L, G's forward and transposed
+routes apart, B's line from the host tier's calls with its masked launches
+beside its own, L's with its calls (a)-(d), A-D's and L's launches over the
 NEW_STEPS steps of each model of 9a and 9b; ``launches`` counts
 wrapper calls, and G's and H's ``launches_per_call`` the kernels one
 bench call launched, as torch.profiler saw them, which must be G's span,
@@ -333,7 +343,9 @@ row store has (:func:`paired_times`; parts ``steps``, ``store``, ``sweep``,
 ``spmm``, ``sddmm``, ``hetero`` (the hetero step and each of its A and B
 calls by device time), ``rows`` (the same for the main step's A and B
 calls and ``[store]``'s masked B), ``agg`` (kernel D's calls (a)-(f) by
-device time, and its backward profiled), all by default; ``weighted``, uniform
+device time, and its backward profiled), ``apply`` (the sparse apply's row
+update at its calls (a)-(d) by device time, then the eager and graphed SAGE
+steps and the hetero step), all by default; ``weighted``, uniform
 and weighted steps in turns, only when named), so that the same function also times
 another tree: run it from that tree's root as ``python3 -c "import runpy,
 sys; sys.argv = ['chip_smoke.py', '--paired-times', 'store', 'spmm'];
@@ -367,8 +379,9 @@ if not torch.cuda.is_available():
 
 import wholegraph_tpu_torch as wt  # noqa: E402
 from wholegraph_tpu_torch import kernels  # noqa: E402
-from wholegraph_tpu_torch.embedding import (SGD, Embedding, HostEmbedding,  # noqa: E402
-                                            LazyAdam, hot_ids_by_degree)
+from wholegraph_tpu_torch.embedding import (SGD, AdaGrad, Embedding,  # noqa: E402
+                                            HostEmbedding, LazyAdam, RMSProp,
+                                            hot_ids_by_degree)
 from wholegraph_tpu_torch.embedding import embedding as emb_mod  # noqa: E402
 from wholegraph_tpu_torch.embedding import host_embedding as host_mod  # noqa: E402
 from wholegraph_tpu_torch.embedding.host_embedding import bench_host_gather  # noqa: E402
@@ -379,6 +392,10 @@ from wholegraph_tpu_torch.ops import KERNELS  # noqa: E402
 from wholegraph_tpu_torch.ops import gather as gather_mod  # noqa: E402
 from wholegraph_tpu_torch.ops import gather_kernels as G  # noqa: E402
 from wholegraph_tpu_torch.ops import host_kernels as H  # noqa: E402
+try:  # kernel L; a tree before it, timed through --paired-times, has no such module
+    from wholegraph_tpu_torch.ops import optim_kernels as OK  # noqa: E402
+except ImportError:
+    OK = None
 from wholegraph_tpu_torch.ops import rng  # noqa: E402
 from wholegraph_tpu_torch.ops import sampling as sampling_mod  # noqa: E402
 from wholegraph_tpu_torch.ops import spmm_kernels as S  # noqa: E402
@@ -591,6 +608,140 @@ def check_scatter(calls):
     return errs, times
 
 
+@contextlib.contextmanager
+def capture_apply(calls):
+    """Record every ``apply_rows`` call of the embedding's apply (kernel L's
+    wrapper as ``Embedding._step_rows`` looks it up) into ``calls``, with
+    copies of its table and slots as they were before it, so that a check
+    replays the call from the same state."""
+    fn = emb_mod.apply_rows
+
+    def rec(table, slots, ids, grads, optimizer, step, lr):
+        calls.append({"table": table.clone(), "slots": {k: v.clone() for k, v in slots.items()},
+                      "ids": ids, "grads": grads, "optimizer": optimizer, "step": step,
+                      "lr": lr})
+        return fn(table, slots, ids, grads, optimizer, step, lr)
+
+    emb_mod.apply_rows = rec
+    try:
+        yield calls
+    finally:
+        emb_mod.apply_rows = fn
+
+
+def as_apply_call(emb, args, case=None):
+    """A recorded ``_step_rows(uids, ugrads, lr, step)`` of a world-1
+    embedding as an ``apply_rows`` call on its table and slots."""
+    uids, ugrads, lr, step = args
+    return {"table": emb.table, "slots": emb.slots, "ids": uids, "grads": ugrads,
+            "optimizer": emb.optimizer, "step": step, "lr": lr, "case": case}
+
+
+def apply_call_bound(c):
+    """Kernel L's bound for one call: each id read once; each valid row's
+    gradient read once, its table row and each slot's row read and written
+    once."""
+    t, ids, g = c["table"], c["ids"], c["grads"]
+    valid = int(((ids >= 0) & (ids < t.shape[0])).sum())
+    row = (g.element_size() + 2 * t.element_size() + 8 * len(c["slots"])) * t.shape[1]
+    return bound_ms(ids.numel() * ids.element_size() + valid * row), valid
+
+
+# the registry's other optimizer settings, each held bit for bit at the apply's calls (a)-(d);
+# their state rows are copies of the call's LazyAdam rows (v, non-negative, for v and state_sum)
+APPLY_OTHER_OPTIMIZERS = (SGD(weight_decay=0.01), LazyAdam(weight_decay=0.01, adam_w=True),
+                          RMSProp(weight_decay=0.01), AdaGrad(weight_decay=0.01))
+
+
+def apply_bits(c, case):
+    """Kernel L and its plain version on their own copies of a call's table
+    and slots: fails unless bit-equal; returns the check's line."""
+    args = (c["ids"], c["grads"], c["optimizer"], c["step"], c["lr"])
+    ta, sa = c["table"].clone(), {k: v.clone() for k, v in c["slots"].items()}
+    tb, sb = c["table"].clone(), {k: v.clone() for k, v in c["slots"].items()}
+    OK.apply_rows(ta, sa, *args)
+    OK.apply_rows_plain(tb, sb, *args)
+    err = max([max_err(ta, tb)] + [max_err(sa[k], sb[k]) for k in sa])
+    require(bit_equal(ta, tb) and all(bit_equal(sa[k], sb[k]) for k in sa),
+            f"sparse_apply differs from its plain version ({case}): {err}")
+    return {"case": case, "max_abs_err": err, "tol": 0.0}
+
+
+def check_apply(calls):
+    """Kernel L on each call (``apply_rows``'s arguments, the table and
+    slots as before it), bit for bit against its plain version, each on its
+    own copy of the table and slots; timed by CUDA events and device time
+    (:func:`graph_ms`) beside the bound, the plain version and the parent's
+    route (kernel A on the table and each slot, the optimizer's ``update``,
+    kernel B on each) by device time. Launches made here are outside every
+    counted run."""
+    errs, times = [], []
+    for i, c in enumerate(calls):
+        args = (c["ids"], c["grads"], c["optimizer"], c["step"], c["lr"])
+        (b_ms, by), valid = apply_call_bound(c)
+        case = c.get("case") or f"call{i}"
+        case += (f" [{c['ids'].numel()}] ({valid} valid) into {list(c['table'].shape)} "
+                 f"{str(c['table'].dtype)[6:]}, grads {str(c['grads'].dtype)[6:]}, "
+                 f"{c['optimizer'].name}")
+        errs.append(apply_bits(c, case))
+        ta, sa = c["table"].clone(), {k: v.clone() for k, v in c["slots"].items()}
+
+        def kern():
+            OK.apply_rows(ta, sa, *args)
+
+        t = {"case": case, "valid": valid, "ms": cuda_ms(kern), "device_ms": graph_ms(kern),
+             "plain_ms": cuda_ms(lambda: OK.apply_rows_plain(ta, sa, *args), 5, warmup=1),
+             "parent_route_device_ms": graph_ms(
+                 lambda: OK._composed(G.gather_rows, G.scatter_rows, ta, sa, *args)),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+        t["bound_share"] = b_ms / t["device_ms"]
+        times.append(t)
+        del ta, sa
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def log_apply_calls(tag, times):
+    """One line of L's checked calls: each call's device ms, its share of
+    the bound, the bound, the plain version's ms and the parent route's
+    device ms."""
+    log(f"[{tag}] sparse_apply calls, device ms (bound share; bound, plain ms, parent route "
+        f"device ms): " + "; ".join(
+            f"{t['case']} {t['device_ms']:.5f} ({t['bound_share']:.3f}; {t['bound_ms']:.5f}, "
+            f"{t['plain_ms']:.4f}, {t['parent_route_device_ms']:.5f})" for t in times))
+
+
+def check_sparse_apply(main_call, gen):
+    """``[sparse_apply]``: kernel L at the apply's calls (a)-(d) (:func:`
+    apply_calls`): (a) the main step's own call as ``[capture]`` recorded
+    it, (b) ``bench_apply``'s, (c) the hetero step's three typed calls, (d)
+    (a) over a bf16 copy of the table; each through :func:`check_apply`,
+    and (b)'s whole ``apply_gradients`` by device time."""
+    c16 = dict(main_call, table=main_call["table"].to(torch.bfloat16),
+               slots={k: v.clone() for k, v in main_call["slots"].items()}, case="(d)")
+    calls = apply_calls(gen, "bc")
+    cases = ([dict(main_call, case="(a)")]
+             + [as_apply_call(v["emb"], v["args"], f"({k})") for k, v in calls.items()] + [c16])
+    errs, times = check_apply(cases)
+    times[1]["whole_device_ms"] = graph_ms(calls["b"]["whole"])
+    log_apply_calls("sparse_apply", times)
+    log(f"[sparse_apply] (b) the whole apply_gradients (dedup and L): "
+        f"{times[1]['whole_device_ms']:.5f} device ms")
+    for opt in APPLY_OTHER_OPTIMIZERS:  # the registry's other settings, at the same calls
+        for c in cases:
+            slots = {n: c["slots"]["m" if n == "m" else "v"] for n in opt.slot_names}
+            errs.append(apply_bits(dict(c, optimizer=opt, slots=slots),
+                                   f"{c['case']} {opt.name}"
+                                   + (" adam_w" if getattr(opt, "adam_w", False) else "")
+                                   + f", weight decay {opt.weight_decay}"))
+    log(f"[sparse_apply] {len(errs)} calls bit-equal to the plain route: (a)-(d) under "
+        f"LazyAdam, SGD, LazyAdam with adam_w, RMSProp and AdaGrad, each with weight decay "
+        f"but the first, {str(main_call['table'].dtype)[6:]} and bf16 tables")
+    del calls, c16, cases
+    torch.cuda.empty_cache()
+    return errs, times
+
+
 def same_sample(a, b):
     """All five fields of two SampleResults bit-equal (dtypes included)."""
     return all(getattr(a, f).dtype == getattr(b, f).dtype and torch.equal(getattr(a, f), getattr(b, f))
@@ -629,26 +780,39 @@ G_KERNELS = ("csr_spmm_span_kernel", "csr_spmm_window_kernel", "csr_spmm_rows_ke
 H_KERNELS = ("csr_sddmm_device_kernel", "csr_sddmm_window_kernel")
 
 
+BLIND_WINDOWS = 20  # profiler windows that recorded no kernel at all, retried before a failure
+
+
 def launch_structure(case, fn, expect, tries=5):
     """The kernels one call of ``fn()`` launches, as torch.profiler saw
     them: the distinct kernel names of up to ``tries`` windows of 5 calls,
     gathered until each of ``expect`` (one name for each kernel the wrapper
     should launch) has been seen; the profiler misses launches on that
-    machine, so one window can show fewer. Fails unless it saw exactly the
-    kernels of ``expect``. Returns their number and the most launches a
-    call that one window recorded."""
-    seen, most = set(), 0.0
-    for _ in range(tries):
+    machine, so one window can show fewer. A window that recorded no kernel
+    at all (the profiler blind: on an H100 it saw none of a call's launches
+    over five windows in a row, twice in four runs) is not counted among
+    the ``tries``, up to BLIND_WINDOWS of them, each after the caching
+    allocator returned its free blocks. Fails unless it saw exactly the
+    kernels of ``expect``. Returns their number, the most launches a call
+    that one window recorded and the blind windows."""
+    seen, most, blind, counted = set(), 0.0, 0, 0
+    while counted < tries and blind < BLIND_WINDOWS:
         n_kern, names = profiled(fn, 5)
+        if not names:
+            blind += 1
+            torch.cuda.empty_cache()
+            continue
+        counted += 1
         seen.update(names)
         most = max(most, n_kern)
         if all(any(x in k for k in seen) for x in expect):
             break
     require(all(any(x in k for k in seen) for x in expect)
             and all(any(x in k for x in expect) for k in seen),
-            f"{case}: the profiler saw the kernels {sorted(seen)}, expected {list(expect)}")
+            f"{case}: the profiler saw the kernels {sorted(seen)} ({blind} windows saw none), "
+            f"expected {list(expect)}")
     return {"kernels_per_call": len(seen), "profiler_launches_per_call": most,
-            "kernels_seen": sorted(seen)}
+            "kernels_seen": sorted(seen), "blind_windows": blind}
 
 
 def graph_ms(fn, iters=20):
@@ -930,6 +1094,153 @@ def agg_times(calls, rounds=3):
     log("[agg] D calls, device ms (bound share; bound, embedding_bag device ms): "
         + "; ".join(f"({k}) {t['case']} {t['device_ms']:.5f} ({t['bound_share']:.3f}; "
                     f"{t['bound_ms']:.5f}, {t['library_device_ms']:.5f})" for k, t in out.items()))
+    return out
+
+
+APPLY_BENCH = (1_000_000, 256, 1 << 17)  # bench_apply's rows, width and ids (bench.py:266-310)
+APPLY_LR = 0.01                          # its rate
+
+
+@contextlib.contextmanager
+def recording_step_rows(embs, calls):
+    """Record every ``Embedding._step_rows(uids, ugrads, lr, step)`` call of
+    the embeddings ``embs`` into ``calls`` as ``(emb, uids, ugrads, lr,
+    step)``: the sparse apply's row update as each tree of the port runs it
+    (kernel L, or kernel A x3, the optimizer's elementwise update and kernel
+    B x3)."""
+    for e in embs:
+        def rec(uids, ugrads, lr, step, _e=e, _fn=e._step_rows):
+            calls.append((_e, uids, ugrads, lr, step))
+            return _fn(uids, ugrads, lr, step)
+
+        e._step_rows = rec
+    try:
+        yield calls
+    finally:
+        for e in embs:
+            del e._step_rows
+
+
+def apply_calls(gen, parts="abcd"):
+    """The sparse apply's calls (a)-(d) as ``_step_rows`` receives them,
+    ``{name: {"emb", "args", "whole"}}``: (a) the SAGE step's apply at
+    ``SageTrainConfig()`` (the step's unique ids and mask, LazyAdam, a
+    2,000,000 x 256 f32 table), (b) ``bench_apply``'s (2^17 seeded uniform
+    ids into 1,000,000 x 256 f32, LazyAdam, through the dedup path; its
+    ``whole`` is the whole ``apply_gradients``), (c) the hetero step's three
+    typed calls at ``HeteroTrainConfig()`` (``c192``, ``c128``, ``c64`` by
+    row bytes), (d) call (a) over a bf16 copy of the table and copies of its
+    m and v; those of ``parts``. Through entry points every tree of the port
+    has."""
+    cfg, dev = wt.SageTrainConfig(), torch.device("cuda")
+    out = {}
+    if "a" in parts or "d" in parts:
+        st = wt.build_synthetic(cfg, device=dev, seed=0)
+        c = torch.randint(0, cfg.n_nodes, (cfg.batch,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        rec = []
+        with recording_step_rows([st.embedding], rec):
+            wt.train_step(st, c, st.labels[c.long()], seed=0)
+        require(len(rec) == 1, f"[apply] the SAGE step made {len(rec)} _step_rows calls")
+        emb = st.embedding
+        out["a"] = {"emb": emb, "args": rec[0][1:], "whole": None}
+        out["d"] = {"emb": bf16_copy(emb), "args": rec[0][1:], "whole": None}
+        del st, rec
+    if "b" in parts:
+        n, dim, batch = APPLY_BENCH
+        eb = Embedding.create(n, dim, optimizer=LazyAdam(), device=dev)
+        eb.init(torch.Generator(device=dev).manual_seed(0))
+        ids = torch.randint(0, n, (batch,), generator=gen, device=dev)
+        grads = torch.ones(batch, dim, device=dev)
+        rec = []
+        with recording_step_rows([eb], rec):
+            eb.apply_gradients(ids, grads, APPLY_LR)
+        out["b"] = {"emb": eb, "args": rec[0][1:],
+                    "whole": lambda: eb.apply_gradients(ids, grads, APPLY_LR)}
+    if "c" in parts:
+        hcfg = wt.HeteroTrainConfig()
+        hst = wt.build_hetero(hcfg, device=dev, seed=0)
+        hc = hst.train_ids[torch.randperm(hst.train_ids.numel(), generator=gen,
+                                          device=dev)[:hcfg.batch]]
+        rec = []
+        with recording_step_rows(list(hst.store.embeddings.values()), rec):
+            wt.hetero_train_step(hst, hc, hst.labels[hc.long()], seed=0)
+        require(len(rec) == 3, f"[apply] the hetero step made {len(rec)} _step_rows calls")
+        for e, *args in rec:
+            out[f"c{e.dim * e.table.element_size()}"] = {"emb": e, "args": tuple(args),
+                                                         "whole": None}
+        del hst
+    torch.cuda.empty_cache()
+    return {k: v for k, v in out.items() if k[0] in parts}
+
+
+def bf16_copy(emb):
+    """A world-1 embedding with a bf16 copy of ``emb``'s table and copies of
+    its optimizer slots."""
+    return Embedding(emb.n, emb.dim, emb.optimizer, torch.bfloat16, emb.table.device,
+                     table=emb.table.to(torch.bfloat16),
+                     slots={k: v.clone() for k, v in emb.slots.items()})
+
+
+def apply_times(calls, rounds=3):
+    """Each of :func:`apply_calls` timed by device time (:func:`graph_ms`),
+    ``_step_rows`` as the tree runs it, the calls in turns over ``rounds``
+    rounds (median and spread), beside the bound; (b) also the whole
+    ``apply_gradients``. The calls update their tables in place."""
+    out = {}
+    for name, c in calls.items():
+        emb, (uids, ugrads, _, _) = c["emb"], c["args"]
+        (b_ms, by), valid = apply_call_bound(as_apply_call(emb, c["args"]))
+        out[name] = {"case": f"[{uids.numel()}] ({valid} valid) into [{emb.table.shape[0]}, "
+                             f"{emb.dim}] {str(emb.table.dtype)[6:]}, grads "
+                             f"{str(ugrads.dtype)[6:]}, {emb.optimizer.name}",
+                     "valid": valid, "bound_ms": b_ms, "bound_by": by,
+                     "device_rounds": [], "whole_rounds": []}
+    for _ in range(rounds):
+        for name, c in calls.items():
+            emb, args = c["emb"], c["args"]
+            out[name]["device_rounds"].append(graph_ms(lambda: emb._step_rows(*args), 10))
+            if c["whole"] is not None:
+                out[name]["whole_rounds"].append(graph_ms(c["whole"], 10))
+    for t in out.values():
+        t["device_ms"] = statistics.median(t["device_rounds"])
+        t["spread"] = max(t["device_rounds"]) - min(t["device_rounds"])
+        t["bound_share"] = t["bound_ms"] / t["device_ms"]
+        if t["whole_rounds"]:
+            t["whole_device_ms"] = statistics.median(t["whole_rounds"])
+        else:
+            del t["whole_rounds"]
+    log("[apply] _step_rows calls, device ms (bound share; bound, valid rows): "
+        + "; ".join(f"({k}) {t['case']} {t['device_ms']:.5f} ({t['bound_share']:.3f}; "
+                    f"{t['bound_ms']:.5f}, {t['valid']})"
+                    + (f", whole apply_gradients {t['whole_device_ms']:.5f}"
+                       if "whole_device_ms" in t else "") for k, t in out.items()))
+    return out
+
+
+def graphed_epoch_ms(cfg, gen, steps):
+    """ms a step of ``train.train_epoch`` at ``cfg`` (a capturable dense
+    Adam): one epoch of ``steps`` captures the step, a second of the same
+    batches replays all of it and is timed by CUDA events; with its peak
+    memory."""
+    st = wt.build_synthetic(cfg, device="cuda", seed=0)
+    st.dense_opt = torch.optim.Adam(st.model.parameters(), lr=cfg.lr, capturable=True)
+    cs = torch.randint(0, cfg.n_nodes, (steps, cfg.batch), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    ys, seeds = st.labels[cs.long()], torch.arange(steps)
+    wt.train.train_epoch(st, cs, ys, seeds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    losses = wt.train.train_epoch(st, cs, ys, seeds)
+    t1.record()
+    t1.synchronize()
+    require(bool(torch.isfinite(losses).all()), f"[apply] graphed losses {losses}")
+    out = {"graphed_step_ms": t0.elapsed_time(t1) / steps,
+           "graphed_peak_bytes": torch.cuda.max_memory_allocated()}
+    del st
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1519,7 +1830,8 @@ def fmt_times(t):
             f"{t['bound_ms']} ms bound, {t['bound_by']}"
             + (f"; device {t['device_ms']} ms" if "device_ms" in t else "")
             + f"); plain {t['plain_ms']} ms; cuSPARSE {t['library_ms']} ms"
-            + (f"; kernels a call {t['kernels_seen']}" if "kernels_seen" in t else ""))
+            + (f"; kernels a call {t['kernels_seen']} (blind profiler windows "
+               f"{t['blind_windows']})" if "kernels_seen" in t else ""))
 
 
 def fg_spmm_phase(g, fg):
@@ -1656,7 +1968,7 @@ def fg_sddmm_phase(g):
 
 PAIRED_STEPS = 30       # timed device-memory steps of a paired run
 PAIRED_HOST_STEPS = 10  # timed host-tier steps of a paired run
-PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm", "hetero", "rows", "agg")
+PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm", "hetero", "rows", "agg", "apply")
 OWN_PARTS = ("weighted",)  # this tree's entry points only, never run by default
 
 
@@ -1690,6 +2002,11 @@ def paired_times(parts=PAIRED_PARTS):
       (``ShardedTable.scatter`` of 2^19 uniform ids into 4,000,000 x 256);
     * ``agg``: kernel D at its calls (a)-(f) (:func:`agg_calls`), each
       checked and timed by device time, in turns (:func:`agg_times`);
+    * ``apply``: the sparse apply's row update at its calls (a)-(d)
+      (:func:`apply_calls`) by device time, in turns (:func:`apply_times`),
+      then PAIRED_STEPS eager SAGE steps (stage split, peak memory), the
+      graphed SAGE step (:func:`graphed_epoch_ms`) and PAIRED_STEPS hetero
+      steps;
     * ``weighted`` (named only; trees before weighted sampling lack it):
       PAIRED_STEPS uniform and weighted device-memory steps in turns
       (uniform, weighted, weighted, uniform) on the same graph, table and
@@ -1739,6 +2056,34 @@ def paired_times(parts=PAIRED_PARTS):
                 "step_median_ms", "step_p90_ms", "sample_median_ms", "busy_ms")},
                 "sample_host_enqueue_ms": host_ms, "sample_cuda_ms": cuda_ms(sample)})
         del states
+        torch.cuda.empty_cache()
+    if "apply" in parts:
+        calls = apply_calls(gen)
+        out["apply"] = apply_times(calls)
+        del calls
+        torch.cuda.empty_cache()
+        state = wt.build_synthetic(cfg, device=dev, seed=0)
+        out["apply_sage_step"], _, _ = timed_steps("paired sage", state, batcher(state),
+                                                   PAIRED_STEPS, 5)
+        del state
+        torch.cuda.empty_cache()
+        out["apply_sage_step"].update(graphed_epoch_ms(cfg, gen, PAIRED_STEPS))
+        log("[apply] SAGE step: eager median " + json.dumps(
+            {k: out["apply_sage_step"][k] for k in ("step_median_ms", "step_p90_ms",
+                                                    "stage_medians_ms", "peak_bytes",
+                                                    "busy_share", "graphed_step_ms",
+                                                    "graphed_peak_bytes")}))
+        hcfg = wt.HeteroTrainConfig()
+        hst = wt.build_hetero(hcfg, device=dev, seed=0)
+
+        def hbatch():
+            c = hst.train_ids[torch.randperm(hst.train_ids.numel(), generator=gen,
+                                             device=dev)[:hcfg.batch]]
+            return c, hst.labels[c.long()]
+
+        out["apply_hetero_step"], _, _ = timed_steps("paired hetero", hst, hbatch, PAIRED_STEPS,
+                                                     5, step=wt.hetero_train_step)
+        del hst
         torch.cuda.empty_cache()
     if "agg" in parts:
         calls, out["agg_backward"] = agg_calls(gen)
@@ -2708,7 +3053,7 @@ def weighted_train_phase(cfg, batch_of):
     require(launches[KW.name] == 2 * WEIGHTED_STEPS and launches["sample_hop_uniform"] == 0
             and launches["sample_cols"] == 0,
             f"the weighted sampler did not run one K launch a hop and nothing else: {launches}")
-    require(all(launches[k] > 0 for k in ("row_gather", "row_scatter", "neighbor_agg")),
+    require(all(launches[k] > 0 for k in ("row_gather", "sparse_apply", "neighbor_agg")),
             f"a kernel of the weighted step never ran: {launches}")
     require(bool(torch.isfinite(state.embedding.table[c.long()]).all()), "non-finite table rows")
     del state, g
@@ -2883,13 +3228,15 @@ def check_hops(calls):
 
 
 def captured_step(step, state, c, y):
-    """One step with every A, B, C and D wrapper call recorded; A's calls
-    come from the embedding's gather and apply and from
-    ``padded_gather_neighbors`` (GAT's and RGCN's neighbour rows)."""
-    calls = {k: [] for k in "ABCD"}
+    """One step with every A, B, C, D and L wrapper call recorded; A's calls
+    come from the embedding's gather and from ``padded_gather_neighbors``
+    (GAT's and RGCN's neighbour rows), L's from the apply. A tree before
+    kernel L (through --paired-times) records A and B in the apply instead."""
+    calls = {k: [] for k in "ABCDL"}
+    apply = (capture_apply(calls["L"]) if hasattr(emb_mod, "apply_rows")
+             else capture(emb_mod, "scatter_rows", calls["B"]))
     with capture(emb_mod, "gather_rows", calls["A"]), \
-            capture(gather_mod, "gather_rows", calls["A"]), \
-            capture(emb_mod, "scatter_rows", calls["B"]), \
+            capture(gather_mod, "gather_rows", calls["A"]), apply, \
             capture(sampling_mod, "sample_hop_uniform", calls["C"]), \
             capture(S, "neighbor_reduce", calls["D"]):
         loss = float(step(state, c, y, seed=0))
@@ -2901,16 +3248,17 @@ def captured_step(step, state, c, y):
 
 def check_new_step(tag, step, state, batch, per_step):
     """A captured step whose calls per step must be ``per_step`` and whose
-    every A, B, C and D call is held against its plain version; then
+    every A, B, C, D and L call is held against its plain version; then
     NEW_STEPS timed steps with the counts from 0, which must be exactly
-    ``per_step`` a step for A-D and nothing of K or C's fetch route."""
+    ``per_step`` a step for A-D and L and nothing of K or C's fetch route."""
     calls, loss0 = captured_step(step, state, *batch())
     got = {k: len(v) for k, v in calls.items()}
     require(got == per_step, f"[{tag}] calls per step {got}, expected {per_step}")
     checks = {}
     for key, kern, fn in (("A", G.ROW_GATHER, check_gather), ("B", G.ROW_SCATTER, check_scatter),
                           ("C", sampling_mod.SAMPLE_HOP, check_hops),
-                          ("D", S.NEIGHBOR_AGG, check_neighbor_agg)):
+                          ("D", S.NEIGHBOR_AGG, check_neighbor_agg),
+                          ("L", OK.SPARSE_APPLY, check_apply)):
         if calls[key]:
             checks[kern.name] = fn(calls[key])
             for e in checks[kern.name][0] + checks[kern.name][1]:
@@ -2920,7 +3268,8 @@ def check_new_step(tag, step, state, batch, per_step):
     del calls
     summary, launches, c = timed_steps(tag, state, batch, NEW_STEPS, profile_steps=5, step=step)
     want = {G.ROW_GATHER.name: per_step["A"], G.ROW_SCATTER.name: per_step["B"],
-            sampling_mod.SAMPLE_HOP.name: per_step["C"], S.NEIGHBOR_AGG.name: per_step["D"]}
+            sampling_mod.SAMPLE_HOP.name: per_step["C"], S.NEIGHBOR_AGG.name: per_step["D"],
+            OK.SPARSE_APPLY.name: per_step["L"]}
     want = {k: v * NEW_STEPS for k, v in want.items()}
     others = {k: v for k, v in launches.items() if k not in want and v}
     require(all(launches[k] == v for k, v in want.items()) and not others,
@@ -2945,8 +3294,8 @@ def sampled_models_phase(cfg, batch_of):
             f"{state.graph.edge_count} edges")
         gcn = kw["model_type"] == "gcn"
         out[tag], checks[tag] = check_new_step(tag, wt.train_step, state, batch_of(state),
-                                               {"A": 4 if gcn else 6, "B": 3, "C": 2,
-                                                "D": 2 if gcn else 0})
+                                               {"A": 1 if gcn else 3, "B": 0, "C": 2,
+                                                "D": 2 if gcn else 0, "L": 1})
         out[tag]["config"] = kw
         del state
         torch.cuda.empty_cache()
@@ -2980,9 +3329,9 @@ def hetero_phase():
         return c, state.labels[c.long()]
 
     summary, checks = check_new_step("hetero", wt.hetero_train_step, state, batch,
-                                     {"A": 14, "B": 9, "C": 2, "D": 0})
-    for kern in (G.ROW_GATHER, G.ROW_SCATTER):
-        log_device_calls("hetero", kern, checks[kern.name][1])
+                                     {"A": 5, "B": 0, "C": 2, "D": 0, "L": 3})
+    log_device_calls("hetero", G.ROW_GATHER, checks[G.ROW_GATHER.name][1])
+    log_apply_calls("hetero", checks[OK.SPARSE_APPLY.name][1])
     for n, e in state.store.embeddings.items():
         require(bool(torch.isfinite(e.table).all()), f"[hetero] non-finite {n} table")
     del state
@@ -3377,8 +3726,9 @@ def hot_cache_phase(state, batch):
         torch.use_deterministic_algorithms(False)
         state.cache = None
     require(lc == lu, f"[hot_cache] cached losses {lc} != uncached {lu}")
-    require(launches["row_gather"] == CACHED_STEPS * (5 + 4),
-            f"[hot_cache] A launches {launches['row_gather']}: 5 a cached step, 4 an uncached")
+    require(launches["row_gather"] == CACHED_STEPS * (2 + 1)
+            and launches["sparse_apply"] == CACHED_STEPS * 2 and launches["row_scatter"] == 0,
+            f"[hot_cache] launches {launches}: A 2 a cached step and 1 an uncached, L 1 a step")
     t.update(losses=lc, table_max_abs_err=max_err(emb.table, twin.embedding.table),
              launches={k: v for k, v in launches.items() if v})
     log(f"[hot_cache] {CACHED_STEPS} cached steps against {CACHED_STEPS} uncached: losses "
@@ -3393,11 +3743,11 @@ EXAMPLE_KERNELS = {  # kernels each example run must launch
     "node_classification": ("row_gather", "sample_hop_uniform", "neighbor_agg"),
     "node_classification_eager": ("row_gather", "sample_hop_uniform", "neighbor_agg"),
     "node_classification_scan": ("row_gather", "sample_hop_uniform", "neighbor_agg"),
-    "node_classification_eager_cache": ("row_gather", "row_scatter", "sample_hop_uniform",
+    "node_classification_eager_cache": ("row_gather", "sparse_apply", "sample_hop_uniform",
                                         "neighbor_agg"),
-    "node_classification_scan_cache": ("row_gather", "row_scatter", "sample_hop_uniform",
+    "node_classification_scan_cache": ("row_gather", "sparse_apply", "sample_hop_uniform",
                                        "neighbor_agg"),
-    "node_classification_gat": ("row_gather", "row_scatter", "sample_hop_uniform", "csr_spmm"),
+    "node_classification_gat": ("row_gather", "sparse_apply", "sample_hop_uniform", "csr_spmm"),
     "link_prediction": ("row_gather_masked", "row_gather", "sample_hop_uniform"),
     "hetero_node_classification": ("row_gather", "sample_hop_uniform"),
 }
@@ -3878,7 +4228,7 @@ def scan_epoch_phase(cfg, smi):
                              profile=tag in ("sage", "sage_weighted"))
         got = out[tag]["captured_step_launches"]
         sampler = KW.name if ccfg.sample_method == "weighted" else sampling_mod.SAMPLE_HOP.name
-        want = {sampler: 2, G.ROW_SCATTER.name: 3}
+        want = {sampler: 2, OK.SPARSE_APPLY.name: 1, G.ROW_SCATTER.name: None}
         if ccfg.model_type in ("sage", "gcn"):
             want[S.NEIGHBOR_AGG.name] = 2
         require(all(got.get(k) == v for k, v in want.items()) and got.get(G.ROW_GATHER.name),
@@ -3903,8 +4253,9 @@ STORE_SEED = 12           # the store check's random 2,000,000 x 256 table
 # the parts of one exchange gather, as ops.gather marks them, and the unmarked call
 WORLD_SPLIT_PARTS = ("bucket", "ids_out", "serve", "rows_back", "unpermute", "remaining",
                      "gather_call")
-WORLD_PATH_KERNELS = ("row_gather", "row_scatter", "sample_hop_uniform", "neighbor_agg",
-                      "row_gather_masked")
+# (A left the world-4 step with the apply's reads: its gather is the exchange's, J and B)
+WORLD_PATH_KERNELS = ("row_scatter", "sample_hop_uniform", "neighbor_agg", "row_gather_masked",
+                      "sparse_apply")
 # the table's SGD rate in the checked SGD steps: the row gradients of the global mean loss
 # over 4,096 centres are about 1e-8 to 1e-5, so at the step's 1e-3 their moves would lie
 # below the f32 rounding of the table's values; at 100 a move is hundreds of ulps
@@ -4837,7 +5188,8 @@ WT_HETERO_ROWS_TOL = 2e-6
 # runs no K (its draw is plain PyTorch), and the dry run's weighted-fused K
 # runs in its own processes
 WT_PATH_KERNELS = ("row_gather", "row_scatter", "row_gather_masked", "host_gather",
-                   "host_scatter", "sample_hop_uniform", "neighbor_agg", "sample_cols")
+                   "host_scatter", "sample_hop_uniform", "neighbor_agg", "sample_cols",
+                   "sparse_apply")
 # tag, example, its options beyond --smoke, rank 0's test line; node_classification runs
 # with and without --scan-epoch, and the two must print the same epoch losses and test line:
 # both run with PyTorch's deterministic algorithms (WT_DETERMINISTIC), since two runs that
@@ -5514,29 +5866,31 @@ def main():
     batch = batch_of(state)
 
     # one full-width step that records every kernel wrapper's arguments
-    calls = {k: [] for k in ("A", "B", "C", "D")}
+    calls = {k: [] for k in ("A", "C", "D", "L")}
     with capture(emb_mod, "gather_rows", calls["A"]), \
-            capture(emb_mod, "scatter_rows", calls["B"]), \
             capture(sampling_mod, "sample_hop_uniform", calls["C"]), \
-            capture(S, "neighbor_reduce", calls["D"]):
+            capture(S, "neighbor_reduce", calls["D"]), capture_apply(calls["L"]):
         c, y = batch()
         loss0 = float(wt.train_step(state, c, y, seed=0))
     require(np.isfinite(loss0), f"first step loss {loss0}")
     per_step = {k: len(v) for k, v in calls.items()}
     log(f"[capture] calls per step: {per_step}, loss {loss0:.5f}")
-    # A: the embedding gather + the apply's table, m and v reads; B: three
-    # write-backs; C: one fetch per hop; D: one aggregation per layer
-    require(per_step == {"A": 4, "B": 3, "C": 2, "D": 2}, f"unexpected calls per step {per_step}")
+    # A: the embedding gather; C: one fetch per hop; D: one aggregation per
+    # layer; L: the apply (the table's, m's and v's rows read, updated, written)
+    require(per_step == {"A": 1, "C": 2, "D": 2, "L": 1}, f"unexpected calls per step {per_step}")
 
     checks = {}
-    for key, kern, fn in (("A", G.ROW_GATHER, check_gather), ("B", G.ROW_SCATTER, check_scatter),
+    for key, kern, fn in (("A", G.ROW_GATHER, check_gather),
                           ("C", sampling_mod.SAMPLE_HOP, lambda c: check_sample_hop(c, gen)),
                           ("D", S.NEIGHBOR_AGG, check_neighbor_agg)):
         require(calls[key], f"kernel {kern.name} was not called by the main path")
         checks[key] = (kern, fn(calls[key]))
         log(f"[check] {kern.name}: {json.dumps(checks[key][1][0])}")
-        if key in "ABD":
+        if key in "AD":
             log_device_calls("check", kern, checks[key][1][1])
+    # kernel L at the apply's calls (a)-(d), (a) the main step's own: its line's time
+    sa_errs, sa_times = check_sparse_apply(calls["L"][0], gen)
+    checks["L"] = (OK.SPARSE_APPLY, (sa_errs, sa_times[:1]))
     del calls
     # kernel D at bench_spmm's call as well
     agg_bench = check_neighbor_agg([agg_bench_call(gen)])
@@ -5620,9 +5974,19 @@ def main():
                         launches_fg_model=fg_launches[kern.name],
                         host_tier_calls=host_times.get(key, []))
            for key, (kern, (errs, times)) in checks.items()]
+    # B left the main step with the apply (kernel L): its line is the host tier's cache-line
+    # rewrite, a call a step, with the store's masked write
+    out.insert(1, kernel_entry(G.ROW_SCATTER, host_launches, host_errs["B"], host_times["B"],
+                               steps=HOST_STEPS, launches_path=f"host_tier ({HOST_STEPS} steps)",
+                               launches_train=launches[G.ROW_SCATTER.name],
+                               launches_host_tier=host_launches[G.ROW_SCATTER.name],
+                               launches_fg_model=fg_launches[G.ROW_SCATTER.name]))
     b = next(e for e in out if e["name"] == G.ROW_SCATTER.name)  # B gains its masked route
     b.update(launches_masked=st_routes["masked"], store_scatter=st_times["B"][0])
     b["checks"] = b["checks"] + st_errs["B"]
+    lk = next(e for e in out if e["name"] == OK.SPARSE_APPLY.name)  # L at calls (a)-(d)
+    lk.update(apply_calls=sa_times, library="none: no single PyTorch call applies a sparse "
+                                            "row update")
     c = next(e for e in out if e["name"] == sampling_mod.SAMPLE_HOP.name)  # C's fetch route
     c.update(library="none: no single PyTorch call samples; take_ms is the fetch's torch.take "
                      "with its index and mask in the call, for reference only",

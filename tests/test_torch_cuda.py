@@ -1,4 +1,4 @@
-"""Kernels A-K on the card against their plain PyTorch versions, one tiny
+"""Kernels A-L on the card against their plain PyTorch versions, one tiny
 training step on the card against the same step on the CPU, the same for
 the host-memory tier (kernels E and F on pinned host tables), tiny
 full-graph models (kernels G and H), the sharded row store (kernels I
@@ -10,7 +10,8 @@ here skips. On a machine with an H100 run them with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
 
 Tolerances: A, B, C, E, F, I and J move bits and must be exact, NaN
-payloads and -0 included. D and G sum up to
+payloads and -0 included; L takes each step of the optimizer's update in
+its plain version's order and rounding and must be exact too. D and G sum up to
 K f32 values in another order than their plain versions: K f32 ulps of the
 largest output (K the longest row), plus one bf16 ulp when the output is
 rounded to bf16. H's dot of D products: D f32 ulps of the largest value.
@@ -24,6 +25,9 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_sparse_apply import (APPLY_DIMS, APPLY_KINDS, APPLY_LR, APPLY_OPTS, APPLY_STEP,
+                                     ScaledSGD, apply_case, same_bits)
+
 import wholegraph_tpu_torch as wt
 from wholegraph_tpu_torch import kernels
 from wholegraph_tpu_torch.embedding import SGD, Embedding, HostEmbedding, LazyAdam
@@ -31,6 +35,7 @@ from wholegraph_tpu_torch.graph import GraphStructure
 from wholegraph_tpu_torch.models import HomoGNN
 from wholegraph_tpu_torch.ops import gather_kernels as G
 from wholegraph_tpu_torch.ops import host_kernels as H
+from wholegraph_tpu_torch.ops import optim_kernels as L
 from wholegraph_tpu_torch.ops import sampling as SM
 from wholegraph_tpu_torch.ops import spmm_kernels as S
 from wholegraph_tpu_torch.utils.error import CudaError
@@ -1391,8 +1396,8 @@ def test_sampled_model_steps_on_card_match_cpu(dev, model_type, degree_mode):
     change over the steps over the rate (the summed row gradients) within
     1e-4 of the largest. The table trains under SGD: LazyAdam's step
     g / (|g| + 1e-8) turns f32 noise of 1e-9 on an element whose gradient
-    is near 0 into a difference of up to the rate. The card ran A, B, C
-    and (GCN) D."""
+    is near 0 into a difference of up to the rate. The card ran A, C, L
+    and (GCN) D, and no B."""
     cfg = wt.SageTrainConfig(n_nodes=400, deg=12, dim=64, hidden=64, num_classes=8, batch=32,
                              fanouts=(5, 6), model_type=model_type, degree_mode=degree_mode)
     cpu = wt.build_synthetic(cfg, device="cpu", seed=2)
@@ -1400,7 +1405,7 @@ def test_sampled_model_steps_on_card_match_cpu(dev, model_type, degree_mode):
     cpu.embedding = Embedding.create(cfg.n_nodes, cfg.dim, optimizer=SGD(), device="cpu"
                                      ).from_array(table0.numpy())
     card = _on_card(cpu, dev)
-    for k in (G.ROW_GATHER, G.ROW_SCATTER, SM.SAMPLE_HOP, S.NEIGHBOR_AGG):
+    for k in (G.ROW_GATHER, G.ROW_SCATTER, SM.SAMPLE_HOP, S.NEIGHBOR_AGG, L.SPARSE_APPLY):
         k.launches = 0
     rs = np.random.RandomState(3)
     for i in range(3):
@@ -1411,9 +1416,10 @@ def test_sampled_model_steps_on_card_match_cpu(dev, model_type, degree_mode):
     ga = (card.embedding.table.cpu() - table0) / cfg.lr
     gb = (cpu.embedding.table - table0) / cfg.lr
     assert (ga - gb).abs().max() <= 1e-4 * max(1.0, float(gb.abs().max()))
-    # A: the gather and SGD's one apply read a step, and GAT's and RGCN's neighbour rows
-    a_per_step = 2 + (2 if model_type in ("gat", "rgcn") else 0)
-    assert G.ROW_GATHER.launches == 3 * a_per_step and G.ROW_SCATTER.launches == 3
+    # A: the gather a step, and GAT's and RGCN's neighbour rows; the apply is L, once a step
+    a_per_step = 1 + (2 if model_type in ("gat", "rgcn") else 0)
+    assert G.ROW_GATHER.launches == 3 * a_per_step and G.ROW_SCATTER.launches == 0
+    assert L.SPARSE_APPLY.launches == 3
     assert SM.SAMPLE_HOP.launches == 6
     assert S.NEIGHBOR_AGG.launches == (6 if model_type == "gcn" else 0)
 
@@ -1444,8 +1450,8 @@ def test_hetero_steps_on_card_match_cpu(dev):
     """Three hetero steps (typed gather, HeteroGNN, typed apply) on the card
     against the CPU from the same dataset and weights: losses within 1e-5,
     and each type's summed row gradients (its change under SGD over the
-    rate, as in the test above) within 1e-4 of the largest; A and B ran, D
-    did not."""
+    rate, as in the test above) within 1e-4 of the largest; A and L ran, B
+    and D did not."""
     from wholegraph_tpu_torch.graph import HeteroFeatureStore
 
     cfg = wt.HeteroTrainConfig(n_paper=600, n_author=200, n_inst=30, num_classes=8, hidden=64,
@@ -1457,7 +1463,7 @@ def test_hetero_steps_on_card_match_cpu(dev):
     for st in (cpu, card):
         st.store = HeteroFeatureStore.create(cpu.store.space, optimizer=SGD(),
                                              device=st.labels.device).from_arrays(tables0)
-    for k in (G.ROW_GATHER, G.ROW_SCATTER, S.NEIGHBOR_AGG):
+    for k in (G.ROW_GATHER, G.ROW_SCATTER, S.NEIGHBOR_AGG, L.SPARSE_APPLY):
         k.launches = 0
     rs = np.random.RandomState(2)
     for i in range(3):
@@ -1471,8 +1477,9 @@ def test_hetero_steps_on_card_match_cpu(dev):
         ga = (card.store.embeddings[n].table.cpu() - t0) / lr
         gb = (cpu.store.embeddings[n].table - t0) / lr
         assert (ga - gb).abs().max() <= 1e-4 * max(1.0, float(gb.abs().max())), n
-    # A: 3 typed gathers, 2 RGCN neighbour gathers, a type's SGD apply read; B: one a type
-    assert G.ROW_GATHER.launches == 3 * 8 and G.ROW_SCATTER.launches == 3 * 3
+    # A: 3 typed gathers, 2 RGCN neighbour gathers; the apply: L once a type, no B
+    assert G.ROW_GATHER.launches == 3 * 5 and G.ROW_SCATTER.launches == 0
+    assert L.SPARSE_APPLY.launches == 3 * 3
     assert S.NEIGHBOR_AGG.launches == 0
 
 
@@ -2113,6 +2120,155 @@ def test_graphed_epoch_matches_eager_epoch(dev, case):
     assert graphed.embedding.step == eager.embedding.step == 12
 
 
+# -- the nineteenth slice: kernel L, the sparse apply's row update -----------
+
+
+def _apply_both(dev, opt, table, slots, ids, grads, step=APPLY_STEP):
+    """Kernel L and the plain route on card copies of one case: the tables
+    and slots after each, and L's launches."""
+    outs = []
+    for fn in (L.apply_rows, L.apply_rows_plain):
+        t = table.to(dev)
+        s = {k: v.to(dev) for k, v in slots.items()}
+        before = L.SPARSE_APPLY.launches
+        fn(t, s, ids.to(dev), grads.to(dev), opt, step, APPLY_LR)
+        outs.append((t.cpu(), {k: v.cpu() for k, v in s.items()},
+                     L.SPARSE_APPLY.launches - before))
+    return outs
+
+
+def _same_state(a, b):
+    return same_bits(a[0], b[0]) and all(same_bits(a[1][k], b[1][k]) for k in a[1])
+
+
+@pytest.mark.parametrize("kind", APPLY_KINDS)
+@pytest.mark.parametrize("D", APPLY_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", list(APPLY_OPTS))
+def test_sparse_apply_matches_plain(dev, name, dtype, D, kind):
+    """L against its plain version on the card, bit for bit, on the CPU
+    tests' cases (padding, ids out of range on both sides, NaN gradients on
+    skipped slots, no slot); one launch a call with a slot."""
+    opt = APPLY_OPTS[name]
+    got, ref = _apply_both(dev, opt, *apply_case(opt, dtype, D, kind))
+    assert _same_state(got, ref)
+    assert got[2] == (0 if kind == "empty" else 1) and ref[2] == 0
+
+
+@pytest.mark.parametrize("name", ["lazy_adam", "adam_w", "rms_prop", "ada_grad", "sgd_wd"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 3])
+def test_sparse_apply_takes_the_table_types_gradients_and_int32_ids(dev, name, dtype, D):
+    """Gradients of the table's own 16-bit type, and int32 ids."""
+    opt = APPLY_OPTS[name]
+    got, ref = _apply_both(dev, opt, *apply_case(opt, dtype, D, "mixed", seed=1,
+                                                 grad_dtype=dtype, id_dtype=torch.int32))
+    assert _same_state(got, ref) and got[2] == 1
+
+
+@pytest.mark.parametrize("R", [1, 2, 31, 32, 33, 255, 256, 257, 511, 512, 513, 4097, 70000])
+@pytest.mark.parametrize("D", [256, 48, 16])
+def test_sparse_apply_batch_sizes(dev, R, D):
+    """From one slot to 70,000 (tiles of 32 to 512 slots, their ragged
+    ends), LazyAdam over a table of 100,000 rows, the last third padding."""
+    opt = APPLY_OPTS["lazy_adam"]
+    rs = np.random.RandomState(R)
+    n = 100_000
+    table = torch.from_numpy(rs.randn(n, D).astype(np.float32))
+    slots = {"m": torch.from_numpy(rs.randn(n, D).astype(np.float32) * 1e-3),
+             "v": torch.from_numpy(rs.rand(n, D).astype(np.float32) * 1e-6)}
+    ids = torch.from_numpy(rs.permutation(n)[:R].astype(np.int64))
+    ids[R - R // 3:] = n
+    grads = torch.from_numpy(rs.randn(R, D).astype(np.float32))
+    got, ref = _apply_both(dev, opt, table, slots, ids, grads)
+    assert _same_state(got, ref) and got[2] == 1
+
+
+@pytest.mark.parametrize("name", ["lazy_adam", "adam_w"])
+def test_sparse_apply_step_row_is_the_int_step(dev, name):
+    """L with an eager step's scalars and with that step's row of
+    ``step_table`` on the card (a replayed graph's route) gives the same
+    bits, and both the plain route's; the scalars are the row's bits."""
+    opt = APPLY_OPTS[name]
+    case = apply_case(opt, torch.float32, 64, "mixed", seed=6)
+    steps = [1, 2, 17, 1000]
+    table = opt.step_table(steps, dev)
+    for i, t in enumerate(steps):
+        eager, plain = _apply_both(dev, opt, *case, step=t)
+        graphed, plain_row = _apply_both(dev, opt, *case, step=table[i])
+        assert _same_state(eager, plain) and _same_state(graphed, plain_row)
+        assert _same_state(eager, graphed)
+        scalars = torch.tensor(L.kernel_params(opt, t, APPLY_LR)[1][7:], dtype=torch.float32)
+        assert same_bits(scalars, table[i].cpu())
+
+
+def test_sparse_apply_launches_once_a_step_rows(dev):
+    """``Embedding.apply_gradients`` on the card: L once a ``_step_rows``
+    (assume_unique, the dedup path, ``unique_chunk``), never A or B; the
+    chunked call bit-equal to the whole one, with deterministic algorithms
+    (the dedup path's ``index_add_`` sums duplicates by atomics otherwise)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _launches_once_a_step_rows(dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _launches_once_a_step_rows(dev):
+    rs = np.random.RandomState(7)
+    n, D, B = 20_000, 64, 5000
+    init = rs.randn(n, D).astype(np.float32)
+    ids = torch.from_numpy(rs.randint(0, n, B).astype(np.int32)).to(dev)
+    uids = torch.from_numpy(rs.permutation(n)[:B].astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rs.rand(B) < 0.8).to(dev)
+    grads = torch.from_numpy(rs.randn(B, D).astype(np.float32)).to(dev)
+    embs = [Embedding.create(n, D, optimizer=LazyAdam(), device=dev).from_array(init)
+            for _ in range(2)]
+    for k in (L.SPARSE_APPLY, G.ROW_GATHER, G.ROW_SCATTER):
+        k.launches = 0
+    embs[0].apply_gradients(uids, grads, 0.01, mask=mask, assume_unique=True)
+    embs[0].apply_gradients(ids, grads, 0.01, mask=mask)
+    assert (L.SPARSE_APPLY.launches, G.ROW_GATHER.launches, G.ROW_SCATTER.launches) == (2, 0, 0)
+    embs[1].apply_gradients(uids, grads, 0.01, mask=mask, assume_unique=True, unique_chunk=1024)
+    embs[1].apply_gradients(ids, grads, 0.01, mask=mask, unique_chunk=1024)
+    chunks = L.SPARSE_APPLY.launches - 2
+    assert chunks >= 6 and (G.ROW_GATHER.launches, G.ROW_SCATTER.launches) == (0, 0)
+    assert np.array_equal(embs[0].to_array(), embs[1].to_array())
+    assert all(np.array_equal(embs[0].slot_to_array(s), embs[1].slot_to_array(s))
+               for s in ("m", "v"))
+
+
+def test_sparse_apply_foreign_optimizer_runs_a_update_b(dev):
+    """A subclass from outside the registry runs A x1, its update, B x1 (SGD
+    has no slots), and gives the plain route's bits; L is not launched."""
+    opt = ScaledSGD()
+    case = apply_case(opt, torch.float32, 32, "mixed", seed=8)
+    for k in (L.SPARSE_APPLY, G.ROW_GATHER, G.ROW_SCATTER):
+        k.launches = 0
+    got, ref = _apply_both(dev, opt, *case)
+    assert _same_state(got, ref)
+    assert (L.SPARSE_APPLY.launches, G.ROW_GATHER.launches, G.ROW_SCATTER.launches) == (0, 1, 1)
+
+
+def test_captured_train_step_launches_sparse_apply(dev):
+    """``train_epoch``'s captured step runs L: the warm-up steps launch it
+    once each, the capture records one launch and the replays run it; no B
+    on the path. The graphed table is the eager one within 1e-5."""
+    eager, graphed = _scan_state(dev, SCAN_CFG, False), _scan_state(dev, SCAN_CFG, False)
+    rs = np.random.RandomState(9)
+    c = torch.from_numpy(rs.randint(0, SCAN_CFG.n_nodes, (5, SCAN_CFG.batch)).astype(
+        np.int32)).to(dev)
+    y = eager.labels[c.long()]
+    for k in (L.SPARSE_APPLY, G.ROW_SCATTER):
+        k.launches = 0
+    got = wt.train.train_epoch(graphed, c, y, torch.arange(5))
+    assert L.SPARSE_APPLY.launches == wt.train.WARMUP_STEPS + 1 and G.ROW_SCATTER.launches == 0
+    want = torch.stack([wt.train_step(eager, c[i], y[i], seed=i) for i in range(5)])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(graphed.embedding.table, eager.embedding.table, rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_graphed_epoch_raises_when_capture_fails(dev, monkeypatch):
     """A step that reads the card on the host cannot be captured: the
     epoch raises and runs no step eagerly in its place."""
@@ -2130,3 +2286,4 @@ def test_graphed_epoch_raises_when_capture_fails(dev, monkeypatch):
         wt.train.train_epoch(st, c, c, torch.arange(4))
     assert st.epoch_graph is None and st.embedding.step == 0
     torch.cuda.synchronize()
+

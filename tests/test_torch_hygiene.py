@@ -316,7 +316,7 @@ def test_kernel_helpers_are_defined_once():
         assert f'#include "{header}"' in texts[src], (src, header)
 
 
-@pytest.mark.parametrize("part", ["A", "B", "D", "G", "J", "K"])
+@pytest.mark.parametrize("part", ["A", "B", "D", "G", "J", "K", "L"])
 def test_kernel_variants_still_apply_to_the_sources(part):
     """Every design alternative of ``tools/kernel_variants.py`` still
     matches the current source it edits (the tool lists a stale one and
@@ -334,5 +334,6 @@ def test_kernel_variants_still_apply_to_the_sources(part):
         "G": lambda: kv.g_variants(read("csr_spmm.cu")),
         "J": lambda: kv.j_variants(read("row_gather.cu"), read("direct_gather.cuh")),
         "K": lambda: kv.k_register_variants(read("sample_weighted.cu")),
+        "L": lambda: kv.l_variants(read("sparse_apply.cu")),
     }[part]()
     assert built and stale == []

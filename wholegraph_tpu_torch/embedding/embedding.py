@@ -14,11 +14,13 @@ apply, torch/embedding.py:214-238): ``rows = emb.gather(ids)`` is a plain
 tensor; the trainer takes the gradient with respect to ``rows`` and hands
 it to :meth:`Embedding.apply_gradients`.
 
-On CUDA the apply reads the touched rows of the table and of each slot with
-kernel A, updates them elementwise in PyTorch, and writes them back with
-kernel B. Padding ids go to the scatter as -1 and are skipped, so they never
-touch row 0's table row or optimizer state (``embedding.py:611-621``); the
-TPU's row-0 dump-and-fix (``:219-252``) is not needed.
+On CUDA the apply is kernel L (:func:`~wholegraph_tpu_torch.ops.optim_kernels.
+apply_rows`): one launch reads each touched row of the table and of each
+slot, updates it and writes it back, for every optimizer of the registry
+(an optimizer from elsewhere runs kernel A, its ``update`` and kernel B).
+Padding slots are skipped, so they never touch row 0's table row or
+optimizer state (``embedding.py:611-621``); the TPU's row-0 dump-and-fix
+(``:219-252``) is not needed.
 
 At world W the gather is the store's exchange (:func:`ops.gather.gather`)
 and the apply follows the reference's flow (embedding.cpp:146-300;
@@ -41,7 +43,8 @@ from ..memory import PartitionPlan, ShardedTable
 from ..memory.sharded_table import default_plan, local_rows
 from ..ops.gather import (_bucket_cap, _round_up, gather as _store_gather, local_take_sorted,
                           remaining, send_round)
-from ..ops.gather_kernels import gather_rows, scatter_rows
+from ..ops.gather_kernels import gather_rows
+from ..ops.optim_kernels import apply_rows
 from ..parallel.mesh import Mesh
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.dtypes import as_torch_dtype
@@ -325,8 +328,8 @@ class Embedding:
         if mask is not None:
             valid &= mask
         ids = torch.where(valid, ids, oob)
-        if assume_unique:
-            uids, ugrads = ids, torch.where(valid[:, None], grads.float(), 0.0)
+        if assume_unique:  # the apply skips the slots at ``oob``: their gradients are not read
+            uids, ugrads = ids, grads
         else:
             uids, ugrads = _dedup_sorted(ids, grads, oob)
         if self.world > 1:
@@ -346,21 +349,14 @@ class Embedding:
     def _step_rows(self, uids: torch.Tensor, ugrads: torch.Tensor, lr: float,
                    step: Union[int, torch.Tensor]) -> None:
         """The optimizer on the rows of ``uids`` (unique below ``n``, owned
-        by this rank; ``n`` marks padding) at ``step`` (the global step, or
-        its row of the optimizer's ``step_table``): kernel A reads table and
-        slots, kernel B writes them."""
-        valid = uids < self.n
+        by this rank; ``n`` marks padding) with their gradients ``ugrads``
+        (f32 or the table's type) at ``step`` (the global step, or its row of
+        the optimizer's ``step_table``): :func:`~wholegraph_tpu_torch.ops.
+        optim_kernels.apply_rows`, kernel L on the card."""
         if self.world > 1:
-            uids = self.plan.local_slot(torch.where(valid, uids, 0))
-        take_idx = torch.where(valid, uids, 0)
-        names = tuple(sorted(self.slots))
-        rows = gather_rows(self.table, take_idx).float()
-        srows = {s: gather_rows(self.slots[s], take_idx) for s in names}
-        new_rows, new_srows = self.optimizer.update(rows, ugrads, srows, step, lr)
-        write_idx = torch.where(valid, uids, -1)
-        scatter_rows(self.table, write_idx, new_rows.to(self.dtype).contiguous())
-        for s in names:
-            scatter_rows(self.slots[s], write_idx, new_srows[s].contiguous())
+            valid = uids < self.n
+            uids = torch.where(valid, self.plan.local_slot(torch.where(valid, uids, 0)), -1)
+        apply_rows(self.table, self.slots, uids, ugrads, self.optimizer, step, lr)
 
     def make_train_step(self, loss_fn: Callable, lr: float, *, gather_kwargs=None,
                         apply_kwargs=None) -> Callable:

@@ -83,6 +83,13 @@ class LazyAdam(SparseOptimizer):
         return (float(np.float32(1.0) - np.float32(self.beta1) ** t),
                 float(np.float32(1.0) - np.float32(self.beta2) ** t))
 
+    def step_rows(self, steps, card: bool) -> np.ndarray:
+        """``[S, 2]`` float32 on the host: the corrections of each step, or
+        with ``card`` their f32 reciprocals, which a card multiplies by
+        (:meth:`step_table`; kernel L's scalars for an eager step)."""
+        rows = np.asarray([self.corrections(int(t)) for t in steps], np.float32).reshape(-1, 2)
+        return np.float32(1.0) / rows if card else rows
+
     def step_table(self, steps, device):
         """Row s: the corrections of ``steps[s]``, computed on the host as
         the eager step computes them. On a card their f32 reciprocals: ATen
@@ -90,10 +97,7 @@ class LazyAdam(SparseOptimizer):
         scalar's f32 reciprocal, so a product here gives the eager step's
         bits; on the CPU it divides, and so does :meth:`update`."""
         dev = torch.device(device)
-        rows = np.asarray([self.corrections(int(t)) for t in steps], np.float32).reshape(-1, 2)
-        if dev.type == "cuda":
-            rows = np.float32(1.0) / rows
-        return torch.from_numpy(rows).to(dev)
+        return torch.from_numpy(self.step_rows(steps, dev.type == "cuda")).to(dev)
 
     def update(self, rows, grads, slots, step, lr):
         g = grads if self.adam_w else grads + self.weight_decay * rows

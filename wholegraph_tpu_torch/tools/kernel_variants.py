@@ -1,12 +1,13 @@
-"""Design alternatives of kernels A, B, D, G, J and K, timed against the
+"""Design alternatives of kernels A, B, D, G, J, K and L, timed against the
 kernels as built: ``python3 -m wholegraph_tpu_torch.tools.kernel_variants
-[--out FILE] [--parts A B D G J K] [--k-parent FILE]``.
+[--out FILE] [--parts A B D G J K L] [--k-parent FILE]``.
 
 Each variant is the current source of ``csrc/row_gather.cu`` (A; J, with
 ``direct_gather.cuh`` inlined where the variant changes it),
 ``csrc/row_scatter.cu`` (B, with ``row_scatter.cuh`` inlined where the
 variant changes it), ``csrc/neighbor_agg.cu`` (D), ``csrc/csr_spmm.cu`` (G)
-or ``csrc/sample_weighted.cu`` (K) with one stated change, applied by text
+``csrc/sample_weighted.cu`` (K) or ``csrc/sparse_apply.cu`` (L) with one
+stated change, applied by text
 substitution
 that must match: a variant whose text no longer matches the source is
 reported as such and not built, so the tool never holds the kernels to its
@@ -76,8 +77,16 @@ probe's, and its output is not kept.
   (a ``git archive`` of the parent commit: the design before the register
   path, a rank count in shared memory up to 256 edges) with that design's
   probes (centre rows only; no rank count; the count over plain weights; no
-  second read of the neighbour; keys only). ``--parts`` limits the run to
-  some of A, B, D, G, J and K.
+  second read of the neighbour; keys only).
+* L at the sparse apply's calls (a)-(d) of ``chip_smoke.py --paired-times
+  apply`` (the SAGE step's, ``bench_apply``'s after its dedup, the hetero
+  step's three typed calls, the SAGE step's over a bf16 table): over tiles
+  of 8-128 KB of f32 rows (``APPLY_TILE_BYTES``), and its variants: 1 and 4
+  (row, vector) items in flight a thread (2 as built), at most 40
+  registers (6 CTAs an SM), streaming stores; a probe that reads its ids
+  and finds none valid; beside each call's bound, by device time alone,
+  each kernel's registers beside them. ``--parts`` limits the run to some
+  of A, B, D, G, J, K and L.
 
 Every function is timed in turns, three rounds, by CUDA events (the median)
 and once as device time from a CUDA graph of 20 calls. Prints one JSON
@@ -358,6 +367,127 @@ def _inline_scatter(src: str, header: str) -> str:
     return _sub(src, '#include "row_scatter.cuh"',
                 header.replace("namespace wg {", "namespace wgv {\nusing namespace wg;")
                 ).replace("wg::row_scatter(", "wgv::row_scatter(")
+
+
+_L_ITEMS = "constexpr int APPLY_ITEMS = 2;"
+_L_BOUNDS = "__global__ void __launch_bounds__(APPLY_THREADS)\nsparse_apply_kernel("
+_L_VALID = "ball[c] = __ballot_sync(0xffffffffu, id[c] >= 0 && id[c] < n_rows);"
+L_TILE_BYTES = (8192, 16384, 32768, 65536, 131072)  # APPLY_TILE_BYTES tried
+
+
+def l_variants(src: str) -> tuple:
+    """Kernel L's alternatives: 1 and 4 items in flight a thread, 6 CTAs an
+    SM (at most 40 registers), streaming stores (``st.global.cs``) in place
+    of ordinary ones for the f32 rows and single elements; a probe that
+    reads the ids and finds none valid (the id pass alone)."""
+    return _each({
+        "L 1 item in flight a thread": lambda: _sub(src, _L_ITEMS,
+                                                    "constexpr int APPLY_ITEMS = 1;"),
+        "L 4 items in flight a thread": lambda: _sub(src, _L_ITEMS,
+                                                     "constexpr int APPLY_ITEMS = 4;"),
+        "L 6 CTAs an SM": lambda: _sub(src, _L_BOUNDS, _L_BOUNDS.replace(
+            "(APPLY_THREADS)", "(APPLY_THREADS, 6)")),
+        "L streaming stores": lambda: _sub(_sub(_sub(
+            src, "*reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);",
+            "__stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));"),
+            "else *p = x[0];", "else __stcs(p, x[0]);"),
+            "*p = narrow<E>(x[0]);", "__stcs(p, narrow<E>(x[0]));"),
+        "probe: L reads its ids, no row": lambda: _sub(
+            src, _L_VALID, _L_VALID.replace("id[c] < n_rows", "id[c] < -n_rows")),
+    })
+
+
+def l_cases(gen) -> dict:
+    """{case: (table, slots, ids, grads, optimizer, step, lr)}: kernel L's
+    calls (a)-(d) as ``apply_rows`` receives them."""
+    from ..embedding import Embedding, LazyAdam
+    from ..embedding import embedding as emb_mod
+    from ..train import (HeteroTrainConfig, SageTrainConfig, build_hetero, build_synthetic,
+                         hetero_train_step, train_step)
+
+    calls = {}
+    rec = []
+    st = build_synthetic(SageTrainConfig(), device="cuda", seed=0)
+    c = torch.randint(0, st.config.n_nodes, (st.config.batch,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    with recording(emb_mod, "apply_rows", rec):
+        train_step(st, c, st.labels[c.long()], seed=0)
+    calls["(a)"] = rec[0]
+    t, slots, *rest = rec[0]
+    calls["(d) bf16 table"] = (t.to(torch.bfloat16), {k: v.clone() for k, v in slots.items()},
+                               *rest)
+    del st
+    rec = []
+    eb = Embedding.create(1_000_000, 256, optimizer=LazyAdam(), device="cuda")
+    eb.init(torch.Generator(device="cuda").manual_seed(0))
+    ids = torch.randint(0, 1_000_000, (1 << 17,), generator=gen, device="cuda")
+    with recording(emb_mod, "apply_rows", rec):
+        eb.apply_gradients(ids, torch.ones(1 << 17, 256, device="cuda"), 0.01)
+    calls["(b)"] = rec[0]
+    rec = []
+    hcfg = HeteroTrainConfig()
+    hst = build_hetero(hcfg, device="cuda", seed=0)
+    hc = hst.train_ids[torch.randperm(hst.train_ids.numel(), generator=gen,
+                                      device="cuda")[:hcfg.batch]]
+    with recording(emb_mod, "apply_rows", rec):
+        hetero_train_step(hst, hc, hst.labels[hc.long()], seed=0)
+    for call in rec:
+        calls[f"(c) {call[0].shape[1] * 4}-byte rows"] = call
+    del hst
+    torch.cuda.empty_cache()
+    return calls
+
+
+def l_section(libs: dict, names, gen) -> dict:
+    """L as built, over tile sizes, and its variants, in turns at each of
+    :func:`l_cases`, beside each call's bound; every output but a probe's
+    held bit-equal to L's plain version."""
+    from ..ops import optim_kernels as OK
+
+    out = {}
+    for case, (table, slots, ids, grads, opt, step, lr) in l_cases(gen).items():
+        def call(t, s, lib=None, tb=None):
+            def run():
+                saved = OK.APPLY_TILE_BYTES
+                OK.APPLY_TILE_BYTES = tb or saved
+                try:
+                    if lib is None:
+                        return OK.apply_rows(t, s, ids, grads, opt, step, lr)
+                    with launching(OK.SPARSE_APPLY, lib):
+                        return OK.apply_rows(t, s, ids, grads, opt, step, lr)
+                finally:
+                    OK.APPLY_TILE_BYTES = saved
+            return run
+
+        def copy():
+            return table.clone(), {k: v.clone() for k, v in slots.items()}
+
+        ref_t, ref_s = copy()
+        OK.apply_rows_plain(ref_t, ref_s, ids, grads, opt, step, lr)
+        variants = {"L": (None, None),
+                    **{f"L tiles of {tb // 1024} KB": (None, tb) for tb in L_TILE_BYTES},
+                    **{name: (libs[name], None) for name in names}}
+        for name, v in variants.items():  # each on its own copy, once, against the plain route
+            if name.startswith("probe"):
+                continue
+            t, s = copy()
+            call(t, s, *v)()
+            if not (torch.equal(t.view(torch.uint8), ref_t.view(torch.uint8))
+                    and all(torch.equal(s[k].view(torch.uint8), ref_s[k].view(torch.uint8))
+                            for k in s)):
+                raise SystemExit(f"kernel_variants: {name} differs from L's plain version ({case})")
+            del t, s
+        del ref_t, ref_s
+        t, s = copy()  # the timed calls update one copy in place
+        fns = {name: call(t, s, *v) for name, v in variants.items()}
+        valid = int(((ids >= 0) & (ids < table.shape[0])).sum())
+        row = (grads.element_size() + 2 * table.element_size() + 8 * len(slots)) * table.shape[1]
+        nbytes = ids.element_size() * ids.numel() + valid * row
+        out[case] = {"bound_ms": nbytes / 3.35e12 * 1e3, "valid": valid, "slots": ids.numel(),
+                     "tile": OK.apply_tile(table.shape[1] * 4), **device_turns(fns)}
+        del fns, t, s
+        torch.cuda.empty_cache()
+    return out
 
 
 def a_variants(src: str) -> tuple:
@@ -725,15 +855,33 @@ def recording(module, name: str, calls: list):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def composed_apply():
+    """The sparse apply by its composed route (kernel A on the table and each
+    slot, the optimizer's update, kernel B on each), which kernel L
+    replaced on the path, so that A and B are timed at the apply's shapes."""
+    from ..ops import optim_kernels
+
+    route = optim_kernels.apply_route
+    optim_kernels.apply_route = lambda optimizer: "composed"
+    try:
+        yield
+    finally:
+        optim_kernels.apply_route = route
+
+
 def step_calls(step, state, centers, labels) -> tuple:
-    """(A's calls, B's calls) of one training step: the embedding's gather
-    and apply, and ``ops.gather``'s (the RGCN's neighbour rows)."""
+    """(A's calls, B's calls) of one training step: the embedding's gather,
+    the apply's by its composed route (:func:`composed_apply`), and
+    ``ops.gather``'s (the RGCN's neighbour rows)."""
     from ..embedding import embedding as emb_mod
     from ..ops import gather as gather_mod
+    from ..ops import optim_kernels
 
     a, b = [], []
     with recording(emb_mod, "gather_rows", a), recording(gather_mod, "gather_rows", a), \
-            recording(emb_mod, "scatter_rows", b):
+            recording(optim_kernels, "gather_rows", a), \
+            recording(optim_kernels, "scatter_rows", b), composed_apply():
         step(state, centers, labels, seed=0)
     torch.cuda.synchronize()
     return [(t.detach(), i) for t, i in a], [(t, i, r) for t, i, r in b]
@@ -1139,8 +1287,8 @@ def d_section(libs: dict, names: list, gen) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
-    ap.add_argument("--parts", nargs="+", choices=("A", "B", "D", "G", "J", "K"),
-                    default=("A", "B", "D", "G", "J", "K"))
+    ap.add_argument("--parts", nargs="+", choices=("A", "B", "D", "G", "J", "K", "L"),
+                    default=("A", "B", "D", "G", "J", "K", "L"))
     ap.add_argument("--d-parent", default=None,
                     help="another tree's neighbor_agg.cu of the earlier design, built and timed "
                          "beside D")
@@ -1186,7 +1334,11 @@ def main(argv=None) -> int:
         if args.d_parent:
             with open(args.d_parent) as f:
                 dv["D parent"] = f.read()
-    variants = {**gv, **jv, **kv, **av, **bv, **dv}
+    lv = {}
+    if "L" in args.parts:
+        lv, st = l_variants(read("sparse_apply.cu"))
+        stale += st
+    variants = {**gv, **jv, **kv, **av, **bv, **dv, **lv}
     libs, logs = build(variants) if variants else ({}, {})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -1224,6 +1376,12 @@ def main(argv=None) -> int:
         out["ptxas"].update({"D": ptxas(built_log("neighbor_agg.cu"), "neighbor_agg"),
                              **{name: ptxas(logs[name], "neighbor_agg") for name in dv}})
         out["D"] = d_section(libs, list(dv), gen)
+        torch.cuda.empty_cache()
+
+    if "L" in args.parts:
+        out["ptxas"].update({"L": ptxas(built_log("sparse_apply.cu"), "sparse_apply"),
+                             **{name: ptxas(logs[name], "sparse_apply") for name in lv}})
+        out["L"] = l_section(libs, list(lv), gen)
         torch.cuda.empty_cache()
 
     if "J" in args.parts:
