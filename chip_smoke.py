@@ -21,7 +21,9 @@ the examples under the launcher and the multichip dry run. In order:
    the native file reader (``csrc/fastio.cpp``) with the host compiler;
 2. measures the host link: the pinned->card and card->pinned rate of a
    1 GiB ``copy_`` (CUDA events), the yardstick printed beside kernels E and
-   F (their bounds take the link's data-sheet peak, LINK_BYTES_PER_S);
+   F (their bounds take the link's data-sheet peak, LINK_BYTES_PER_S), and
+   the duplex rate of both at once on two streams, the yardstick of kernel
+   L's host route, which reads and writes at once;
 3. builds the full-width synthetic state (``SageTrainConfig()``: 2M nodes,
    dim 256, batch 1024, fanouts (10, 15)) and runs one step that records the
    arguments of every kernel wrapper call (the apply's, kernel L's, with
@@ -72,7 +74,7 @@ the examples under the launcher and the multichip dry run. In order:
    in the background while the next step writes the table in place),
    reloaded by ``load_embedding`` (load ms) bit-equal, and the next
    step's loss from the reloaded state bit-equal to the live one's; a
-   host-tier checkpoint on the card (kernels E and F) round-trips too.
+   host-tier checkpoint on the card (kernel E and L's host route) round-trips too.
    Where the disk holds less than twice the bytes, the rows are cut (the
    width stays 256) and the line says so;
 6b. ``[hot_cache]``: the same state's top-degree rows at
@@ -167,13 +169,23 @@ the examples under the launcher and the multichip dry run. In order:
    ``index_select`` into pinned staging and a copy; a span ``copy_`` and a
    take on the card);
 11. the host-tier path: ``SageTrainConfig()`` with ``cache_ratio=0.25`` and
-   the top-degree rows cached; one captured step whose every E and F call is
-   held against its plain version (E with the link bytes it read; F by its
-   written rows and a sample of
-   untouched rows), and so is every A and B call on the cache's lines; then
-   HOST_STEPS timed steps with the stage split, the
-   cache hit fraction, peak device memory and pinned bytes, failing if any
-   of kernels A-F was not launched (C: once a hop);
+   the top-degree rows cached; one captured step (A on the hits, C twice, D
+   twice, E on the misses, kernel L's host route once for the apply; no F,
+   no B) whose apply call is replayed from the rows it touched as they were
+   before it (the table's, m's, v's and the cache lines', restored in place,
+   no second copy of the pinned tables): L's host route bit-equal to the
+   composed route (E on the table, m and v, the update, F on each, B on the
+   cache lines) and to the step's own result, under LazyAdam and the
+   registry's other optimizers (APPLY_OTHER_OPTIMIZERS); both routes timed
+   by device time (``measure_chain``) beside the apply's two bounds over
+   the link, both directions at once and one after the other; E's calls
+   (the step's and the composed route's, with the link bytes E read) and
+   F's (by its written rows and a sample of untouched rows), A's and B's
+   held against their plain versions; then HOST_COMPOSED_STEPS steps under
+   a LazyAdam subclass, which takes the composed route (E 4, F 3, B 1 a
+   step), and HOST_STEPS timed steps with the stage split, the cache hit
+   fraction, peak device memory and pinned bytes, failing unless E and L's
+   host route ran once a step, C once a hop, and F and B never;
 12. ``[fg_spmm]``: kernel G at ``bench_spmm_clustered``'s shapes
    (``clustered_csr(2^20, 16, 192)``, 20,441,541 edges, x [2^20, 256] f32):
    mean, sum and weighted sum held against the plain version, each also
@@ -297,9 +309,11 @@ the examples under the launcher and the multichip dry run. In order:
     either graph bit-equal, with PyTorch's deterministic algorithms); the
     host tier at ``host_cache_ratio=0.25`` (pinned shards of 3 x
     512,000,000 bytes a rank): 5 SGD steps (table and dense parameters)
-    held against world 1 (WORLD_TOL), a captured LazyAdam step with every E, F, A and B call against its plain
-    version, 5 timed steps split by stage, coherence on every rank, E's
-    and F's link bytes; the hot cache (the top-degree 20 % replicated on
+    held against world 1 (WORLD_TOL), a captured LazyAdam step with every E
+    and A call against its plain version and its apply call (L's host
+    route) bit-equal to the composed route from the same rows, 5 timed
+    steps split by stage, coherence on every rank, the apply's link bytes;
+    the hot cache (the top-degree 20 % replicated on
     every rank): ``gather_with_cache`` bit-equal to the store's gather at
     ``cold_capacity_factor`` 0.5 and 0.1 (waves and rounds counted), 3
     cached steps bit-equal to uncached; ``HeteroTrainConfig()``: 3 steps
@@ -315,19 +329,20 @@ the examples under the launcher and the multichip dry run. In order:
     its six lines;
 
 then prints a ``kernels`` JSON line (A-L, G's forward and transposed
-routes apart, B's line from the host tier's calls with its masked launches
-beside its own, L's with its calls (a)-(d), A-D's and L's launches over the
+routes apart, B's and F's lines from the host tier's composed route with
+B's masked launches beside its own, L's with its calls (a)-(d), L's host
+route (``sparse_apply_host``) with the host-tier step's apply call, A-D's and L's launches over the
 NEW_STEPS steps of each model of 9a and 9b; ``launches`` counts
 wrapper calls, and G's and H's ``launches_per_call`` the kernels one
-bench call launched, as torch.profiler saw them, which must be G's span,
+bench call launched, as its capture in a CUDA graph holds them, which must be G's span,
 window and rows kernels and H's two; every kernel's launches in each
 example run; A's entry also carries the ``[hot_cache]`` and ``[io]``
 readings, and A-D, I and J each rank's launches in ``[world]``'s timed
 steps, store and epoch; every
 kernel each rank's launches in ``[sharded_fg]``, and G's entry its checks
 on the local CSRs and that phase's readings; every kernel each rank's
-launches in ``[world_tier]`` (C's fetch route its own), A, B, C's fetch,
-E, F and J their checks there, J's
+launches in ``[world_tier]`` (C's fetch route its own), A, C's fetch,
+E, J and L's host route their checks there, J's
 entry its time on the 4-byte rows and A's the phase's readings), every
 kernel its launches in ``[scan_epoch]`` as the warm-up's, the captured
 step's calls and the graph's counted replays (C and K their checks in the
@@ -345,7 +360,9 @@ calls by device time), ``rows`` (the same for the main step's A and B
 calls and ``[store]``'s masked B), ``agg`` (kernel D's calls (a)-(f) by
 device time, and its backward profiled), ``apply`` (the sparse apply's row
 update at its calls (a)-(d) by device time, then the eager and graphed SAGE
-steps and the hetero step), all by default; ``weighted``, uniform
+steps and the hetero step), ``host_apply`` (the host-tier step's whole
+``apply_gradients`` by device time, then HOST_STEPS eager host-tier
+steps), all by default; ``weighted``, uniform
 and weighted steps in turns, only when named), so that the same function also times
 another tree: run it from that tree's root as ``python3 -c "import runpy,
 sys; sys.argv = ['chip_smoke.py', '--paired-times', 'store', 'spmm'];
@@ -408,6 +425,8 @@ F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 LINK_BYTES_PER_S = 64e9     # H100 SXM PCIe Gen5 x16: 128 GB/s both ways (NVIDIA data sheet)
 STEPS = 100                 # timed full-width steps (p90 has 10 beyond it)
 HOST_STEPS = 30             # timed host-tier steps (p90 has 3 beyond it)
+HOST_COMPOSED_STEPS = 3     # host-tier steps under a LazyAdam subclass (the composed route)
+HOST_APPLY_ITERS = 5        # calls in each measure_chain of the host-tier apply's two routes
 HOST_CACHE_RATIO = 0.25     # __graft_entry__.py's host-tier cache_ratio
 FG_STEPS = 20               # timed full-graph value_and_grad runs per model (p90 has 2 beyond it)
 FG_CENTERS = 1024           # centres of the full-graph evaluation and loss
@@ -780,39 +799,65 @@ G_KERNELS = ("csr_spmm_span_kernel", "csr_spmm_window_kernel", "csr_spmm_rows_ke
 H_KERNELS = ("csr_sddmm_device_kernel", "csr_sddmm_window_kernel")
 
 
-BLIND_WINDOWS = 20  # profiler windows that recorded no kernel at all, retried before a failure
+def graph_kernels(fn):
+    """The kernel launches of one call of ``fn()``, by (mangled) name: the
+    call captured in a CUDA graph, whose kernel nodes are read back through
+    the driver API (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``,
+    ``cuFuncGetName``). A capture records every launch of the call, where
+    torch.profiler on an H100 missed some (one kernel of a two-kernel call
+    over 25 calls in a row, or every kernel of up to 12 windows of 5)."""
+    import ctypes
 
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
 
-def launch_structure(case, fn, expect, tries=5):
-    """The kernels one call of ``fn()`` launches, as torch.profiler saw
-    them: the distinct kernel names of up to ``tries`` windows of 5 calls,
-    gathered until each of ``expect`` (one name for each kernel the wrapper
-    should launch) has been seen; the profiler misses launches on that
-    machine, so one window can show fewer. A window that recorded no kernel
-    at all (the profiler blind: on an H100 it saw none of a call's launches
-    over five windows in a row, twice in four runs) is not counted among
-    the ``tries``, up to BLIND_WINDOWS of them, each after the caching
-    allocator returned its free blocks. Fails unless it saw exactly the
-    kernels of ``expect``. Returns their number, the most launches a call
-    that one window recorded and the blind windows."""
-    seen, most, blind, counted = set(), 0.0, 0, 0
-    while counted < tries and blind < BLIND_WINDOWS:
-        n_kern, names = profiled(fn, 5)
-        if not names:
-            blind += 1
-            torch.cuda.empty_cache()
+    def call(name, *args):
+        rc = getattr(cu, name)(*args)
+        require(rc == 0, f"{name} returned CUresult {rc}")
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = vp(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+    nodes = (vp * n.value)()
+    call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", vp(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
             continue
-        counted += 1
-        seen.update(names)
-        most = max(most, n_kern)
-        if all(any(x in k for k in seen) for x in expect):
-            break
-    require(all(any(x in k for k in seen) for x in expect)
-            and all(any(x in k for x in expect) for k in seen),
-            f"{case}: the profiler saw the kernels {sorted(seen)} ({blind} windows saw none), "
-            f"expected {list(expect)}")
-    return {"kernels_per_call": len(seen), "profiler_launches_per_call": most,
-            "kernels_seen": sorted(seen), "blind_windows": blind}
+        # CUDA_KERNEL_NODE_PARAMS_v2: CUfunction func at 0, CUkernel kern at 56
+        params = (ctypes.c_uint8 * 128)()
+        call("cuGraphKernelNodeGetParams_v2", vp(node), params)
+        func = vp.from_buffer(params, 0).value
+        name = ctypes.c_char_p()
+        if func:
+            call("cuFuncGetName", ctypes.byref(name), vp(func))
+        else:
+            call("cuKernelGetName", ctypes.byref(name), vp(vp.from_buffer(params, 56).value))
+        names.append(name.value.decode())
+    graph.reset()
+    return names
+
+
+def launch_structure(case, fn, expect):
+    """The kernels one call of ``fn()`` launches (:func:`graph_kernels`).
+    Fails unless they are exactly the kernels of ``expect`` (one name for
+    each kernel the wrapper should launch), each launched once. Returns
+    their number, the launches and each one's identifier out of its mangled
+    name."""
+    names = graph_kernels(fn)
+    require(sorted(sum(x in k for k in names) for x in expect) == [1] * len(expect)
+            and all(any(x in k for x in expect) for k in names),
+            f"{case}: one call launched the kernels {names}, expected {list(expect)} once each")
+    return {"kernels_per_call": len(set(names)), "launches_per_call": len(names),
+            "kernels_seen": sorted((re.search(r"[a-z_]+_kernel", k) or re.search(".{,60}", k))[0]
+                                   for k in names)}
 
 
 def graph_ms(fn, iters=20):
@@ -1287,16 +1332,34 @@ def quantile(values, q):
 
 
 def link_rates():
-    """Pinned->card and card->pinned rate of a 1 GiB ``copy_``, GB/s."""
+    """Pinned->card and card->pinned rate of a 1 GiB ``copy_``, GB/s, each
+    alone and both at once (a 1 GiB copy each way, on two streams: the
+    duplex rate counts the bytes of both)."""
     n = 1 << 30
     host = H.pinned_empty((n,), torch.uint8).fill_(1)
     dev = torch.empty((n,), dtype=torch.uint8, device="cuda")
     h2d = cuda_ms(lambda: dev.copy_(host, non_blocking=True), iters=5, warmup=1)
     d2h = cuda_ms(lambda: host.copy_(dev, non_blocking=True), iters=5, warmup=1)
-    del host, dev
+    host2 = H.pinned_empty((n,), torch.uint8).fill_(2)
+    dev2 = torch.empty((n,), dtype=torch.uint8, device="cuda")
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+
+    def duplex():
+        cur = torch.cuda.current_stream()
+        for st in streams:
+            st.wait_stream(cur)
+        with torch.cuda.stream(streams[0]):
+            dev.copy_(host, non_blocking=True)
+        with torch.cuda.stream(streams[1]):
+            host2.copy_(dev2, non_blocking=True)
+        for st in streams:
+            cur.wait_stream(st)
+
+    both = cuda_ms(duplex, iters=5, warmup=1)
+    del host, dev, host2, dev2
     free_pinned()
     return {"h2d_GBps": n / h2d / 1e6, "d2h_GBps": n / d2h / 1e6, "bytes": n,
-            "h2d_ms": h2d, "d2h_ms": d2h}
+            "h2d_ms": h2d, "d2h_ms": d2h, "duplex_GBps": 2 * n / both / 1e6, "duplex_ms": both}
 
 
 def device_time(state, batch, step_ms, steps=10, sample_ms=None, step=None):
@@ -1560,15 +1623,17 @@ def host_gather_phase(link):
 
 
 def check_host_steps(emb, calls_e, calls_f, snap, sample, link):
-    """Every E and F call of one captured host-tier step against its plain
-    version; F by its written rows and a sample of untouched rows."""
+    """E's calls of the host tier (the step's gather and the composed
+    route's reads) and F's (the composed route's write-backs) against their
+    plain versions; F by its written rows and a sample of untouched rows."""
     errs, times = {"E": [], "F": []}, {"E": [], "F": []}
     torch.cuda.synchronize()
     for i, ((table, slots), kw) in enumerate(calls_e):
         err = max_err(H.host_gather_rows(table, slots, **kw),
                       H.host_gather_rows_plain(table, slots))
         require(err == 0.0, f"host_gather step call{i} differs from its plain version: {err}")
-        regime = "step gather (misses)" if i == 0 else "step apply (sorted unique slots)"
+        regime = ("step gather (misses)" if i == 0
+                  else "composed apply (sorted unique slots)")
         errs["E"].append({"case": f"step call{i}", "max_abs_err": err, "tol": 0.0})
         t = time_host_gather(f"step call{i} [{slots.numel()}] of {list(table.shape)}",
                              table, slots, link, kw)
@@ -1609,6 +1674,199 @@ def check_host_steps(emb, calls_e, calls_f, snap, sample, link):
     return errs, times
 
 
+@contextlib.contextmanager
+def capture_host_apply(calls):
+    """Record every ``apply_rows_host`` call of the host tier's apply (as
+    ``HostEmbedding.apply_gradients`` looks it up) into ``calls``, with the
+    rows it is about to touch as they were before it (:func:`host_rows`),
+    so that a check replays the call from the same state."""
+    fn = host_mod.apply_rows_host
+
+    def rec(table, slots, ids, grads, optimizer, step, lr, *, lines, cache_rows):
+        c = {"table": table, "slots": slots, "ids": ids, "grads": grads, "optimizer": optimizer,
+             "step": step, "lr": lr, "lines": lines, "cache_rows": cache_rows}
+        valid = (ids >= 0) & (ids < table.shape[0])
+        c["vids"] = ids[valid].long().cpu()
+        c["hit_lines"] = lines[valid & (lines >= 0)].long()
+        c["before"] = host_rows(c)
+        calls.append(c)
+        return fn(table, slots, ids, grads, optimizer, step, lr, lines=lines,
+                  cache_rows=cache_rows)
+
+    host_mod.apply_rows_host = rec
+    try:
+        yield calls
+    finally:
+        host_mod.apply_rows_host = fn
+
+
+def host_rows(c):
+    """Copies of the rows an apply call touches: its valid slots' rows of
+    the table and of every state table, and its hit lines of the cache."""
+    torch.cuda.synchronize()
+    return {"table": c["table"][c["vids"]], "cache": c["cache_rows"][c["hit_lines"]],
+            **{k: v[c["vids"]] for k, v in c["slots"].items()}}
+
+
+def restore_host_rows(c, rows):
+    """Write :func:`host_rows`' copies back in place."""
+    torch.cuda.synchronize()
+    c["table"][c["vids"]] = rows["table"]
+    c["cache_rows"][c["hit_lines"]] = rows["cache"]
+    for k, v in c["slots"].items():
+        v[c["vids"]] = rows[k]
+
+
+def host_apply_composed(c, opt=None, slots=None, record=None):
+    """The host tier's apply before kernel L's host route: kernel E on the
+    table and each slot, the optimizer's update on the card, kernel F on
+    each, kernel B on the cache lines. ``record``: lists that get E's
+    ``(args, kwargs)`` (with an int64 ``_stats`` to which E adds the bytes
+    it reads), F's and B's arguments."""
+    def gather(t, s):
+        kw = {"_sort": False}
+        if record is not None:
+            kw["_stats"] = record["read"]
+            record["E"].append(((t, s), {"_sort": False}))
+        return H.host_gather_rows(t, s, **kw)
+
+    def scatter(t, s, rows):
+        if record is not None:
+            record["F"].append((t, s, rows))
+        return H.host_scatter_rows(t, s, rows)
+
+    def lines(t, s, rows):
+        if record is not None:
+            record["B"].append((t, s, rows))
+        return G.scatter_rows(t, s, rows)
+
+    OK._composed_host(gather, scatter, lines, c["table"], c["slots"] if slots is None else slots,
+                      c["ids"], c["grads"], opt or c["optimizer"], c["step"], c["lr"],
+                      c["lines"], c["cache_rows"])
+
+
+def host_apply_fused(c, opt=None, slots=None):
+    OK.apply_rows_host(c["table"], c["slots"] if slots is None else slots, c["ids"], c["grads"],
+                       opt or c["optimizer"], c["step"], c["lr"], lines=c["lines"],
+                       cache_rows=c["cache_rows"])
+
+
+def host_apply_route(c, route, opt=None, slots=None, record=None):
+    """One route of the apply call from the rows as they were before it;
+    returns the touched rows after it."""
+    restore_host_rows(c, c["before"])
+    if route == "host":
+        host_apply_fused(c, opt, slots)
+    else:
+        host_apply_composed(c, opt, slots, record)
+    return host_rows(c)
+
+
+def same_host_rows(a, b):
+    return all(bit_equal(a[k], b[k]) for k in a)
+
+
+def host_apply_bounds(c):
+    """The apply call's bytes and bounds: each valid row's table row and
+    state rows read from the host once and written once; on the card the
+    ids, lines and gradients read and the hit lines written. Both
+    directions of the link at once (the host route can), and one after the
+    other (the composed route's order)."""
+    t, ids = c["table"], c["ids"]
+    valid, hits, D = c["vids"].numel(), c["hit_lines"].numel(), t.shape[1]
+    row = D * (t.element_size() + 4 * len(c["slots"]))
+    hbm = 2 * ids.numel() * 4 + valid * D * 4 + hits * D * t.element_size()
+    link = valid * row
+    return {"valid": valid, "hits": hits, "link_read_bytes": link, "link_write_bytes": link,
+            "hbm_bytes": hbm, "duplex_bound_ms": link_bound_ms(link, hbm)[0],
+            "in_turn_bound_ms": link_bound_ms(2 * link, hbm)[0]}
+
+
+def host_apply_bits(c, tag, others=()):
+    """Kernel L's host route at an apply call, bit-equal to the composed
+    route and to what the call itself wrote, each from the rows as they
+    were before the call, under the call's optimizer and ``others`` (their
+    state rows the call's m and v rows); the touched rows left as the call
+    wrote them. Returns the checks, the composed route's recorded calls
+    (:func:`host_apply_composed`) and the touched rows as the call wrote
+    them."""
+    after = host_rows(c)
+    record = {"E": [], "F": [], "B": [],
+              "read": torch.zeros(1, dtype=torch.int64, device=c["ids"].device)}
+    composed = host_apply_route(c, "composed", record=record)
+    fused = host_apply_route(c, "host")
+    case = (f"{tag} [{c['ids'].numel()}] ({c['vids'].numel()} valid, "
+            f"{c['hit_lines'].numel()} cached) into {list(c['table'].shape)} "
+            f"{str(c['table'].dtype)[6:]}, {c['optimizer'].name}")
+    require(same_host_rows(fused, composed) and same_host_rows(fused, after),
+            f"sparse_apply_host differs from the composed route or the step ({case})")
+    errs = [{"case": case, "setting": c["optimizer"].name, "max_abs_err": 0.0, "tol": 0.0}]
+    m, v = c["slots"]["m"], c["slots"]["v"]
+    for opt in others:
+        slots = {n: m if n == "m" else v for n in opt.slot_names}
+        setting = (opt.name + (" adam_w" if getattr(opt, "adam_w", False) else "")
+                   + f", weight decay {opt.weight_decay}")
+        name = f"{case[:-len(c['optimizer'].name)]}{setting}"
+        a = host_apply_route(c, "host", opt, slots)
+        b = host_apply_route(c, "composed", opt, slots)
+        require(same_host_rows(a, b), f"sparse_apply_host differs from the composed route "
+                                      f"({name})")
+        errs.append({"case": name, "setting": setting, "max_abs_err": 0.0, "tol": 0.0})
+    restore_host_rows(c, after)
+    return errs, record, after
+
+
+def check_host_apply(c, link):
+    """Kernel L's host route at the host-tier step's apply call: bit-equal
+    to the composed route and to the step's own result under the call's
+    optimizer and the registry's others (:func:`host_apply_bits`); both
+    routes timed in turns by device time (``measure_chain``,
+    HOST_APPLY_ITERS calls) and by CUDA events, beside the two bounds, the
+    host route's plain version and the bytes E read on the composed route;
+    the touched rows left as the step wrote them. Returns (checks, the host
+    route's times, the composed route's E, F and B calls)."""
+    errs, record, after = host_apply_bits(c, "host tier step apply", APPLY_OTHER_OPTIMIZERS)
+    t = {"case": errs[0]["case"], **host_apply_bounds(c),
+         "composed_e_read_bytes": int(record["read"].item()),
+         "library_ms": None, "bound_by": "bytes"}
+    rounds = {"host": [], "composed": []}
+    for route in ("host", "composed", "composed", "host"):
+        fn = host_apply_fused if route == "host" else host_apply_composed
+        rounds[route].append(measure_chain(lambda i: fn(c), HOST_APPLY_ITERS) * 1e3)
+    t.update(device_ms=statistics.median(rounds["host"]), device_ms_turns=rounds["host"],
+             composed_device_ms=statistics.median(rounds["composed"]),
+             composed_device_ms_turns=rounds["composed"],
+             ms=cuda_ms(lambda: host_apply_fused(c), 5, warmup=1),
+             composed_ms=cuda_ms(lambda: host_apply_composed(c), 5, warmup=1),
+             plain_ms=cuda_ms(lambda: OK.apply_rows_host_plain(
+                 c["table"], c["slots"], c["ids"], c["grads"], c["optimizer"], c["step"], c["lr"],
+                 lines=c["lines"], cache_rows=c["cache_rows"]), 1, warmup=0, lead=False))
+    restore_host_rows(c, after)
+    t.update(bound_ms=t["duplex_bound_ms"], bound_share=t["duplex_bound_ms"] / t["device_ms"],
+             in_turn_share=t["in_turn_bound_ms"] / t["device_ms"],
+             composed_in_turn_share=t["in_turn_bound_ms"] / t["composed_device_ms"],
+             host_over_composed=t["device_ms"] / t["composed_device_ms"],
+             duplex_copy_ms=2 * t["link_read_bytes"] / (link["duplex_GBps"] * 1e6))
+    log(f"[host_tier] sparse_apply_host at the step's apply ({t['valid']} valid rows, "
+        f"{t['hits']} cached; {t['link_read_bytes']} bytes read and as many written over the "
+        f"link; the composed route's E read {t['composed_e_read_bytes']}): device ms "
+        f"{t['device_ms']} (turns {rounds['host']}) against the composed route's (E x3, update, "
+        f"F x3, B) {t['composed_device_ms']} (turns {rounds['composed']}), ratio "
+        f"{t['host_over_composed']}; bounds {t['duplex_bound_ms']} ms both directions at once "
+        f"(share {t['bound_share']}), {t['in_turn_bound_ms']} ms one after the other (host "
+        f"{t['in_turn_share']}, composed {t['composed_in_turn_share']}); the same bytes at the "
+        f"[link] duplex copy_ rate {t['duplex_copy_ms']} ms; CUDA events {t['ms']} (composed "
+        f"{t['composed_ms']}); plain version {t['plain_ms']} ms")
+    log(f"[host_tier] sparse_apply_host bit-equal to the composed route and to the step at "
+        f"{len(errs)} settings: " + "; ".join(e["setting"] for e in errs))
+    return errs, t, record
+
+
+class ComposedLazyAdam(LazyAdam):
+    """LazyAdam from outside the registry's types: ``apply_route`` sends it
+    down the composed route (E, its update, F, B)."""
+
+
 def host_tier_phase(cfg, link):
     """The sampled GraphSAGE step with the table, m and v in pinned host
     memory (HostEmbedding, cache_ratio HOST_CACHE_RATIO)."""
@@ -1630,57 +1888,91 @@ def host_tier_phase(cfg, link):
                           dtype=torch.int32)
         return c, state.labels[c.long()]
 
-    # a sample of rows of the table, m and v, to show F leaves untouched rows alone
+    # a sample of rows of the table, m and v, to show the apply leaves untouched rows alone
     sample = torch.randperm(cfg.n_nodes, generator=torch.Generator().manual_seed(6))[:65536]
     snap = {"table": emb.host_table[sample]}
     snap.update({s: t[sample] for s, t in emb.host_slots.items()})
-    calls = {k: [] for k in "ABCDEF"}
+    calls = {k: [] for k in "ACDEL"}
+    reset_launches()
     with capture(host_mod, "gather_rows", calls["A"]), \
-            capture(host_mod, "scatter_rows", calls["B"]), \
             capture(sampling_mod, "sample_hop_uniform", calls["C"]), \
             capture(S, "neighbor_reduce", calls["D"]), \
             capture_kw(host_mod, "host_gather_rows", calls["E"]), \
-            capture(host_mod, "host_scatter_rows", calls["F"]):
+            capture_host_apply(calls["L"]):
         c, y = batch()
         loss0 = float(wt.train_step(state, c, y, seed=0))
     require(np.isfinite(loss0), f"first host-tier step loss {loss0}")
+    step_launches = {k: v for k, v in read_launches().items() if v}
     per_step = {k: len(v) for k, v in calls.items()}
-    # E: the gather's misses and the apply's table, m and v reads; F: three
-    # write-backs; A: the cache hits; B: the cached lines' rewrite
-    require(per_step == {"A": 1, "B": 1, "C": 2, "D": 2, "E": 4, "F": 3},
+    # A: the cache hits; C: a hop each; D: a layer each; E: the gather's misses; L: the apply
+    # (kernel L's host route: the table's, m's and v's rows read, updated and written back, and
+    # the cached lines among them rewritten); F and B no longer run
+    require(per_step == {"A": 1, "C": 2, "D": 2, "E": 1, "L": 1},
             f"unexpected host-tier calls per step {per_step}")
+    require(step_launches.get("sparse_apply_host") == 1 and "host_scatter" not in step_launches
+            and "row_scatter" not in step_launches and "sparse_apply" not in step_launches,
+            f"the host-tier step's apply did not run one launch of L's host route alone: "
+            f"{step_launches}")
     ml = state.graph.multilayer_sample(c, cfg.fanouts, seed=0)
     ids = ml.unique_gids[ml.unique_mask]
     hit = emb.cache_hit_fraction(ids)
     misses = int(((calls["E"][0][0][1] >= 0)).sum())
-    log(f"[host_tier] captured step: calls {per_step}, loss {loss0:.5f}, {ids.numel()} unique "
-        f"rows, cache hit fraction {hit}, {misses} rows fetched from the host")
-    errs, times = check_host_steps(emb, calls["E"], calls["F"], snap, sample, link)
-    # A on the cache hits' lines of cache_rows, B on the rewrite of the
+    log(f"[host_tier] captured step: calls {per_step}, launches {step_launches}, loss "
+        f"{loss0:.5f}, {ids.numel()} unique rows, cache hit fraction {hit}, {misses} rows "
+        f"fetched from the host")
+    l_errs, l_time, composed = check_host_apply(calls["L"][0], link)
+    # E: the step's gather and the composed route's reads; F: the composed route's write-backs
+    errs, times = check_host_steps(emb, calls["E"] + composed["E"], composed["F"], snap, sample,
+                                   link)
+    errs["L_host"] = l_errs
+    # A on the cache hits' lines of cache_rows, B on the composed route's rewrite of the
     # cached lines (the new rows of the step's hits, -1 for the rest)
-    for key, check in (("A", check_gather), ("B", check_scatter)):
-        errs[key], times[key] = check(calls[key])
+    for key, check, args in (("A", check_gather, calls["A"]),
+                             ("B", check_scatter, composed["B"])):
+        errs[key], times[key] = check(args)
         for e in errs[key] + times[key]:
             e["case"] = "host tier " + e["case"]
     require(coherent(emb), "host tier: a cached row differs from its host row")
     for key, name in (("E", "host_gather"), ("F", "host_scatter"), ("A", "row_gather"),
                       ("B", "row_scatter")):
         log(f"[check] {name} (host tier): " + json.dumps(errs[key]))
-    del calls, snap
+    del calls, snap, composed
+
+    # the composed route through the entry point: a LazyAdam subclass
+    opt = emb.optimizer
+    emb.optimizer = ComposedLazyAdam(**dataclasses.asdict(opt))
+    reset_launches()
+    for i in range(HOST_COMPOSED_STEPS):
+        require(np.isfinite(float(wt.train_step(state, *batch(), seed=100 + i))),
+                "non-finite loss on the host tier's composed route")
+    composed_launches = read_launches()
+    emb.optimizer = opt
+    per = {k: composed_launches[k] / HOST_COMPOSED_STEPS for k in (
+        "host_gather", "host_scatter", "row_scatter", "sparse_apply_host")}
+    require(per == {"host_gather": 4, "host_scatter": 3, "row_scatter": 1,
+                    "sparse_apply_host": 0},
+            f"the host tier's composed route ran other launches a step: {per}")
+    log(f"[host_tier] {HOST_COMPOSED_STEPS} steps under a LazyAdam subclass (the composed "
+        f"route): launches a step {per}")
 
     _, launches, c = timed_steps("host_tier", state, batch, HOST_STEPS, profile_steps=5)
-    path = (G.ROW_GATHER, G.ROW_SCATTER, sampling_mod.SAMPLE_HOP, S.NEIGHBOR_AGG, H.HOST_GATHER,
-            H.HOST_SCATTER)
+    path = (G.ROW_GATHER, sampling_mod.SAMPLE_HOP, S.NEIGHBOR_AGG, H.HOST_GATHER,
+            OK.SPARSE_APPLY_HOST)
     require(all(launches[k.name] > 0 for k in path), f"a kernel of the host tier never ran: {launches}")
     require(launches["sample_hop_uniform"] == 2 * HOST_STEPS and launches["sample_cols"] == 0,
             f"the host tier's sampler did not run one kernel C launch per hop: {launches}")
+    require(launches["host_gather"] == HOST_STEPS and launches["sparse_apply_host"] == HOST_STEPS
+            and launches["host_scatter"] == 0 and launches["row_scatter"] == 0,
+            f"the host tier did not run E and L's host route once a step, and F and B never: "
+            f"{launches}")
     require(bool(torch.isfinite(emb.gather(c)).all()), "non-finite host-tier rows")
     require(coherent(emb), "host tier: the cache lost coherence over the timed steps")
     log(f"[host_tier] pinned {asked} bytes asked ({held} held); cache hit fraction {hit}; "
-        f"link h2d {link['h2d_GBps']} GB/s, d2h {link['d2h_GBps']} GB/s")
+        f"link h2d {link['h2d_GBps']} GB/s, d2h {link['d2h_GBps']} GB/s, both at once "
+        f"{link['duplex_GBps']} GB/s")
     del state, emb, host_tensors
     free_pinned()
-    return errs, times, launches
+    return errs, times, launches, composed_launches, l_time
 
 
 # ---------------------------------------------------------------------------
@@ -1830,8 +2122,8 @@ def fmt_times(t):
             f"{t['bound_ms']} ms bound, {t['bound_by']}"
             + (f"; device {t['device_ms']} ms" if "device_ms" in t else "")
             + f"); plain {t['plain_ms']} ms; cuSPARSE {t['library_ms']} ms"
-            + (f"; kernels a call {t['kernels_seen']} (blind profiler windows "
-               f"{t['blind_windows']})" if "kernels_seen" in t else ""))
+            + (f"; kernels a call {t['kernels_seen']} (read from its CUDA graph)"
+               if "kernels_seen" in t else ""))
 
 
 def fg_spmm_phase(g, fg):
@@ -1968,7 +2260,8 @@ def fg_sddmm_phase(g):
 
 PAIRED_STEPS = 30       # timed device-memory steps of a paired run
 PAIRED_HOST_STEPS = 10  # timed host-tier steps of a paired run
-PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm", "hetero", "rows", "agg", "apply")
+PAIRED_PARTS = ("steps", "store", "sweep", "spmm", "sddmm", "hetero", "rows", "agg", "apply",
+                "host_apply")
 OWN_PARTS = ("weighted",)  # this tree's entry points only, never run by default
 
 
@@ -2007,6 +2300,12 @@ def paired_times(parts=PAIRED_PARTS):
       then PAIRED_STEPS eager SAGE steps (stage split, peak memory), the
       graphed SAGE step (:func:`graphed_epoch_ms`) and PAIRED_STEPS hetero
       steps;
+    * ``host_apply``: the host tier at ``SageTrainConfig()``
+      (``host_cache_ratio`` HOST_CACHE_RATIO): one step's whole
+      ``HostEmbedding.apply_gradients`` (its dedup and the apply's link
+      work) by device time (``measure_chain`` of HOST_APPLY_ITERS calls,
+      twice), then HOST_STEPS eager host-tier steps (stage split, busy
+      share);
     * ``weighted`` (named only; trees before weighted sampling lack it):
       PAIRED_STEPS uniform and weighted device-memory steps in turns
       (uniform, weighted, weighted, uniform) on the same graph, table and
@@ -2085,6 +2384,26 @@ def paired_times(parts=PAIRED_PARTS):
                                                      5, step=wt.hetero_train_step)
         del hst
         torch.cuda.empty_cache()
+    if "host_apply" in parts:
+        hstate = wt.build_synthetic(cfg, device=dev, seed=0, host_cache_ratio=HOST_CACHE_RATIO)
+        emb = hstate.embedding
+        rec = []
+        real = emb.apply_gradients
+        emb.apply_gradients = lambda *a, **kw: rec.append((a, kw)) or real(*a, **kw)
+        float(wt.train_step(hstate, *batcher(hstate)(), seed=0))
+        del emb.apply_gradients
+        a, kw = rec[0]
+        whole = [measure_chain(lambda i: emb.apply_gradients(*a, **kw), HOST_APPLY_ITERS) * 1e3
+                 for _ in range(2)]
+        out["host_apply"] = {"whole_apply_device_ms": whole, "rows": a[0].numel(),
+                             "valid": int(kw["mask"].sum()) if "mask" in kw else None}
+        out["host_apply_step"], _, _ = timed_steps("paired host_apply", hstate, batcher(hstate),
+                                                   HOST_STEPS, 5)
+        log("[host_apply] host-tier step: " + json.dumps(
+            {**out["host_apply"], **{k: out["host_apply_step"][k] for k in (
+                "step_median_ms", "step_p90_ms", "stage_medians_ms", "busy_share")}}))
+        del hstate, emb, rec, a, kw
+        free_pinned()
     if "agg" in parts:
         calls, out["agg_backward"] = agg_calls(gen)
         out["agg"] = agg_times(calls)
@@ -3482,7 +3801,7 @@ def io_phase(state, batch, link, tmp):
     step writes the table in place while the write runs), reloaded by
     ``load_embedding`` bit-equal, and the next step's loss from the
     reloaded state bit-equal to the live one's; a host-tier checkpoint on
-    the card (E and F) round-trips too."""
+    the card (E and L's host route) round-trips too."""
     from wholegraph_tpu_torch.io import native
     from wholegraph_tpu_torch.io.file_io import STAGING_BYTES
 
@@ -3588,7 +3907,7 @@ def io_phase(state, batch, link, tmp):
 
 
 def host_checkpoint(tmp):
-    """A host-tier embedding (pinned table and slots, E and F) trained two
+    """A host-tier embedding (pinned table and slots, E and L's host route) trained two
     steps on the card, saved through AsyncCheckpointer, reloaded by
     ``load_host_embedding``: host rows, slots, step and hot set bit-equal,
     and a gather of the reloaded tier equal to the live one's."""
@@ -3611,8 +3930,8 @@ def host_checkpoint(tmp):
     torch.cuda.synchronize()
     load_ms = (time.perf_counter() - t0) * 1e3
     launches = read_launches()
-    require(launches["host_gather"] > 0 and launches["host_scatter"] > 0,
-            f"[io] the host tier did not run E and F: {launches}")
+    require(launches["host_gather"] > 0 and launches["sparse_apply_host"] > 0,
+            f"[io] the host tier did not run E and L's host route: {launches}")
     ids = torch.randint(0, n, (65536,), generator=gen, device="cuda", dtype=torch.int32)
     require(back.step == 2 and back.hot_cap == n // 4
             and np.array_equal(back.to_array(), he.to_array())
@@ -3626,7 +3945,7 @@ def host_checkpoint(tmp):
     log(f"[io] host-tier checkpoint ([{n}, {dim}] table, m, v pinned: {nbytes} bytes, "
         f"{n // 4} rows cached): snapshot {snapshot_ms:.1f} ms, load {load_ms:.1f} ms; host rows, "
         f"slots, step, hot set and a 65,536-id gather bit-equal; E {launches['host_gather']} and "
-        f"F {launches['host_scatter']} launches")
+        f"L's host route {launches['sparse_apply_host']} launches")
     del he, back
     free_pinned()
     return {"bytes": nbytes, "snapshot_ms": snapshot_ms, "load_ms": load_ms}
@@ -5182,13 +5501,13 @@ WT_HETERO_CHECK = 8192    # touched paper rows compared with world 1
 # run read (NVIDIA H100 80GB HBM3, 700 W); the control, each row left as it was before the
 # steps (a lost update), must lie beyond it on at least WORLD_TOL["sgd_sensitivity"] of them
 WT_HETERO_ROWS_TOL = 2e-6
-# kernels every rank must launch on [world_tier]'s path: A, B, J and E, F
-# (the host tier), C and D (the steps over a replicated graph), C's fetch (a
+# kernels every rank must launch on [world_tier]'s path: A, B, J and E, L's
+# host route (the host tier), L (the device embedding's apply), C and D (the steps over a replicated graph), C's fetch (a
 # whole col beside a sharded row_ptr); the weighted sample over a sharded CSR
 # runs no K (its draw is plain PyTorch), and the dry run's weighted-fused K
 # runs in its own processes
 WT_PATH_KERNELS = ("row_gather", "row_scatter", "row_gather_masked", "host_gather",
-                   "host_scatter", "sample_hop_uniform", "neighbor_agg", "sample_cols",
+                   "sparse_apply_host", "sample_hop_uniform", "neighbor_agg", "sample_cols",
                    "sparse_apply")
 # tag, example, its options beyond --smoke, rank 0's test line; node_classification runs
 # with and without --scan-epoch, and the two must print the same epoch losses and test line:
@@ -5355,10 +5674,12 @@ def wt_host_part(rank, mesh, cfg, centers, ids, total):
     """The host tier at SageTrainConfig() with host_cache_ratio 0.25: each
     rank's pinned shard and hot lines. WORLD_STEPS steps with the table and
     the dense parameters under SGD (:func:`world_state`), the rows at
-    ``ids`` after the last; then LazyAdam: one captured step (F's written
-    rows checked at once, E, A and B against their plain versions after
-    the count), WT_HOST_STEPS timed steps split by stage, coherence on the
-    rank, pinned bytes, and E's and F's calls and link bytes a step."""
+    ``ids`` after the last; then LazyAdam: one captured step (its apply
+    call, kernel L's host route, held bit for bit against the composed
+    route at once; E and A against their plain versions after the count),
+    WT_HOST_STEPS timed steps split by stage, coherence on the rank, pinned
+    bytes, and E's and L's host route's calls a step and their link
+    bytes."""
     dev = mesh.device
     out = {}
     mine = ids.view(WORLD, -1)[rank].to(dev)
@@ -5376,45 +5697,38 @@ def wt_host_part(rank, mesh, cfg, centers, ids, total):
     emb = st.embedding
     asked, held = pinned_bytes([emb.host_table, *emb.host_slots.values()])
     out["pinned_asked"], out["pinned_held"] = asked, held
-    calls = {k: [] for k in "ABEF"}
+    calls = {k: [] for k in "AEL"}
     marks = {}
 
     def run():
         with capture(host_mod, "gather_rows", calls["A"]), \
-                capture(host_mod, "scatter_rows", calls["B"]), \
                 capture_kw(host_mod, "host_gather_rows", calls["E"]), \
-                capture(host_mod, "host_scatter_rows", calls["F"]):
+                capture_host_apply(calls["L"]):
             first = world_steps(st, centers, rank, WORLD_STEPS, 1)
-        # F's written rows, before the next steps write the tables again
-        torch.cuda.synchronize()
-        f_checks = []
-        for i, (table, slots, rows) in enumerate(calls["F"]):
-            valid = (slots >= 0) & (slots < table.shape[0])
-            err = max_err(table[slots[valid].long().cpu()], rows[valid].cpu())
-            f_checks.append({"case": f"world_tier rank {rank} step call{i}", "max_abs_err": err,
-                             "tol": 0.0})
+        # L's host route against the composed route, before the next steps write the tables
+        l_checks = []
+        for c in calls["L"]:
+            l_checks += host_apply_bits(c, f"world_tier rank {rank} step apply")[0]
         timed = world_steps(st, centers, rank, WORLD_STEPS + 1, WT_HOST_STEPS, marks)
-        return first + timed, f_checks
+        return first + timed, l_checks
 
     torch.cuda.reset_peak_memory_stats()
-    losses, f_checks = wt_counted(total, run)
+    losses, l_checks = wt_counted(total, run)
     out["lazy_losses"], out["stage_ms"] = losses, marks
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     out["coherent"] = coherent(emb)
     rb = emb.dim * emb.host_table.element_size()
-    out["e_calls"], out["f_calls"] = len(calls["E"]), len(calls["F"])
+    out["e_calls"], out["l_calls"] = len(calls["E"]), len(calls["L"])
     out["e_link_bytes"] = sum(int(torch.unique(s[(s >= 0) & (s < t.shape[0])]).numel()) * rb
                               for (t, s), _ in calls["E"])
-    out["f_link_bytes"] = sum(int(((s >= 0) & (s < t.shape[0])).sum()) * rb
-                              for t, s, _ in calls["F"])
-    checks = {"F": f_checks, "E": [], "A": [], "B": []}
+    out["apply_link_bytes"] = sum(host_apply_bounds(c)["link_read_bytes"] for c in calls["L"])
+    checks = {"L_host": l_checks, "E": [], "A": []}
     for i, ((table, slots), kw) in enumerate(calls["E"]):
         err = max_err(H.host_gather_rows(table, slots, **kw), H.host_gather_rows_plain(table, slots))
         checks["E"].append({"case": f"world_tier rank {rank} step call{i} [{slots.numel()}] of "
                                     f"{list(table.shape)}", "max_abs_err": err, "tol": 0.0})
-    for key, check in (("A", check_gather), ("B", check_scatter)):
-        errs, _ = check(calls[key])
-        checks[key] = [dict(e, case=f"world_tier rank {rank} host tier {e['case']}") for e in errs]
+    errs, _ = check_gather(calls["A"])
+    checks["A"] = [dict(e, case=f"world_tier rank {rank} host tier {e['case']}") for e in errs]
     out["checks"] = checks
     del calls, st, emb
     free_pinned()
@@ -5700,8 +6014,9 @@ def world_tier_phase(cfg, smi):
                                                      "host tier differs from its host row")
         bad = [e for es in h["checks"].values() for e in es if e["max_abs_err"] != 0.0]
         require(not bad, f"[world_tier] rank {r}: host-tier kernels differ: {bad}")
-        require(h["e_calls"] == 4 and h["f_calls"] == 3,
-                f"[world_tier] rank {r}: E {h['e_calls']} and F {h['f_calls']} calls a step")
+        require(h["e_calls"] == 1 and h["l_calls"] == 1,
+                f"[world_tier] rank {r}: E {h['e_calls']} and L's host route {h['l_calls']} "
+                f"calls a step")
     h0 = res[0]["host"]
     steps = [sum(x) for x in zip(*h0["stage_ms"].values())]
     summary["host"] = {
@@ -5712,14 +6027,15 @@ def world_tier_phase(cfg, smi):
         "pinned_held_per_rank": [o["host"]["pinned_held"] for o in res],
         "peak_bytes_per_rank": [o["host"]["peak_bytes"] for o in res],
         "e_link_bytes_per_rank": [o["host"]["e_link_bytes"] for o in res],
-        "f_link_bytes_per_rank": [o["host"]["f_link_bytes"] for o in res],
+        "apply_link_bytes_per_rank": [o["host"]["apply_link_bytes"] for o in res],
         "hot_cap": h0["hot_cap"], "capacity": h0["capacity"]}
     log(f"[world_tier] host tier, {WT_HOST_STEPS} timed LazyAdam steps, rank 0, on {smi}: step "
         f"median {summary['host']['step_median_ms']:.3f} ms, stages "
         f"{json.dumps(summary['host']['stage_medians_ms'])}; pinned bytes a rank asked "
         f"{summary['host']['pinned_asked_per_rank']} (held {summary['host']['pinned_held_per_rank']}); "
-        f"E 4 and F 3 calls a step, link bytes of the captured step a rank E "
-        f"{summary['host']['e_link_bytes_per_rank']} F {summary['host']['f_link_bytes_per_rank']}; "
+        f"E 1 and L's host route 1 call a step, link bytes of the captured step a rank E "
+        f"{summary['host']['e_link_bytes_per_rank']}, the apply "
+        f"{summary['host']['apply_link_bytes_per_rank']} each way; "
         f"{h0['hot_cap']} cache lines of {h0['capacity']} rows a rank; coherent on every rank")
 
     # the hot cache
@@ -5794,7 +6110,7 @@ def world_tier_phase(cfg, smi):
     summary["checks"] = {
         "J": [e for o in res for e in o["csr"]["j_checks"]],
         "C": [e for o in res for e in o["csr"]["c_checks"]],
-        **{k: [e for o in res for e in o["host"]["checks"][k]] for k in "ABEF"}}
+        **{k: [e for o in res for e in o["host"]["checks"][k]] for k in ("A", "E", "L_host")}}
     return summary
 
 
@@ -5845,7 +6161,9 @@ def main():
 
     link = link_rates()
     log(f"[link] pinned->card {link['h2d_GBps']} GB/s, card->pinned {link['d2h_GBps']} GB/s "
-        f"(1 GiB copy_, CUDA events) on {smi}")
+        f"(1 GiB copy_, CUDA events); both at once on two streams {link['duplex_GBps']} GB/s "
+        f"(2 GiB in {link['duplex_ms']} ms), against {2 * LINK_BYTES_PER_S / 1e9} GB/s at the "
+        f"link's peak; on {smi}")
 
     cfg = wt.SageTrainConfig()
     t0 = time.perf_counter()
@@ -5935,7 +6253,7 @@ def main():
     scan = scan_epoch_phase(cfg, smi)
 
     bench, bench_errs = host_gather_phase(link)
-    host_errs, host_times, host_launches = host_tier_phase(cfg, link)
+    host_errs, host_times, host_launches, host_composed, host_apply = host_tier_phase(cfg, link)
 
     # the full-graph paths (kernels G and H)
     t0 = time.perf_counter()
@@ -5974,10 +6292,12 @@ def main():
                         launches_fg_model=fg_launches[kern.name],
                         host_tier_calls=host_times.get(key, []))
            for key, (kern, (errs, times)) in checks.items()]
-    # B left the main step with the apply (kernel L): its line is the host tier's cache-line
-    # rewrite, a call a step, with the store's masked write
-    out.insert(1, kernel_entry(G.ROW_SCATTER, host_launches, host_errs["B"], host_times["B"],
-                               steps=HOST_STEPS, launches_path=f"host_tier ({HOST_STEPS} steps)",
+    # B left the main step with the apply (kernel L) and the host tier's with L's host route:
+    # its line is the host tier's composed route's cache-line rewrite (a LazyAdam subclass), a
+    # call a step, with the store's masked write
+    composed_path = f"host_tier composed route ({HOST_COMPOSED_STEPS} steps, a LazyAdam subclass)"
+    out.insert(1, kernel_entry(G.ROW_SCATTER, host_composed, host_errs["B"], host_times["B"],
+                               steps=HOST_COMPOSED_STEPS, launches_path=composed_path,
                                launches_train=launches[G.ROW_SCATTER.name],
                                launches_host_tier=host_launches[G.ROW_SCATTER.name],
                                launches_fg_model=fg_launches[G.ROW_SCATTER.name]))
@@ -6012,10 +6332,28 @@ def main():
                    + agg_bench[0])
     d["max_abs_err"] = max(c["max_abs_err"] for c in d["checks"])
     d["tol"] = max(c["tol"] for c in d["checks"])
+    # E: the host-tier step's gather of its misses, a call a step (its three reads on the
+    # composed route beside it); F: the composed route's write-backs, three a step
     out.append(kernel_entry(H.HOST_GATHER, host_launches, host_errs["E"] + bench_errs,
-                            host_times["E"], steps=HOST_STEPS, bench=bench, link=link))
-    out.append(kernel_entry(H.HOST_SCATTER, host_launches, host_errs["F"], host_times["F"],
-                            steps=HOST_STEPS, link=link))
+                            host_times["E"][:1], steps=HOST_STEPS, bench=bench, link=link,
+                            composed_route_calls=host_times["E"][1:],
+                            launches_composed_route=host_composed[H.HOST_GATHER.name]))
+    out.append(kernel_entry(H.HOST_SCATTER, host_composed, host_errs["F"], host_times["F"],
+                            steps=HOST_COMPOSED_STEPS, launches_path=composed_path,
+                            launches_host_tier=host_launches[H.HOST_SCATTER.name], link=link))
+    # L's host route: the host-tier step's apply, a launch a step
+    lh = OK.SPARSE_APPLY_HOST
+    out.append({
+        "name": lh.name, "route": "cuda", "source": f"wholegraph_tpu_torch/csrc/{lh.source}",
+        "replaces": lh.replaces, "launches": host_launches[lh.name],
+        "max_abs_err": max(e["max_abs_err"] for e in host_errs["L_host"]),
+        "tol": max(e["tol"] for e in host_errs["L_host"]),
+        **{k: host_apply[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "none: no single PyTorch call applies a sparse row update",
+        "case": host_apply["case"], "steps": HOST_STEPS,
+        "launches_path": f"host_tier ({HOST_STEPS} steps)",
+        "launches_composed_route": host_composed[lh.name], "calls": [host_apply],
+        "checks": host_errs["L_host"], "link": link})
     out.append(bench_entry(S.CSR_SPMM, "csr_spmm", fg_routes["forward"],
                         g_errs + gat_errs["forward"] + fgm_checks["forward"], g_times[0],
                         g_times + gat_times["forward"], call_route="forward",
@@ -6067,11 +6405,10 @@ def main():
     gk["tol"] = max(c["tol"] for c in gk["checks"])
     gk["sharded_fg"] = {k: sfg[k] for k in ("stats", "rgcn_stats", "edge_stats", "errs", "ranks")}
     # the fourteenth slice: each rank's launches over [world_tier]'s paths, and the checks of
-    # A, B, E, F (the host tier's captured step), J (the sharded CSR's 4-byte rows) and C's
-    # fetch (a whole col beside a sharded row_ptr) there
-    keys = {G.ROW_GATHER.name: "A", G.ROW_SCATTER.name: "B", H.HOST_GATHER.name: "E",
-            H.HOST_SCATTER.name: "F", G.ROW_GATHER_MASKED.name: "J",
-            sampling_mod.SAMPLE_HOP.name: "C"}
+    # A, E and L's host route (the host tier's captured step), J (the sharded CSR's 4-byte rows)
+    # and C's fetch (a whole col beside a sharded row_ptr) there
+    keys = {G.ROW_GATHER.name: "A", H.HOST_GATHER.name: "E", OK.SPARSE_APPLY_HOST.name: "L_host",
+            G.ROW_GATHER_MASKED.name: "J", sampling_mod.SAMPLE_HOP.name: "C"}
     for e in out:
         e["launches_world_tier"] = {r: v.get(e["name"], 0) for r, v in wtier["launches"].items()}
         if e["name"] in keys:

@@ -675,20 +675,23 @@ def test_host_rows_refuse_memory_that_is_not_pinned(dev):
 def test_host_tier_steps_on_card_match_cpu_and_hbm(dev):
     """Three tiny steps with the host tier on the card, on the CPU, and with
     the device-memory embedding on the card; the cache stays coherent with
-    the host over the steps (each step's E reads see the last one's F
-    writes)."""
+    the host over the steps (each step's E reads see the last one's writes
+    by kernel L's host route)."""
     state, batches = _tiny_states()
     on_card, on_cpu, hbm = state(dev, 0.25), state("cpu", 0.25), state(dev)
-    launches = (H.HOST_GATHER.launches, H.HOST_SCATTER.launches)
+    launches = (H.HOST_GATHER.launches, H.HOST_SCATTER.launches, L.SPARSE_APPLY_HOST.launches,
+                G.ROW_SCATTER.launches)
     for i, c in enumerate(batches):
         a = wt.train_step(on_card, c.to(dev), on_card.labels[c.long().to(dev)], seed=i)
         b = wt.train_step(on_cpu, c, on_cpu.labels[c.long()], seed=i)
         h = wt.train_step(hbm, c.to(dev), hbm.labels[c.long().to(dev)], seed=i)
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(a, h, rtol=1e-5, atol=1e-5)
-    # per step: E once in the gather and 3x in the apply, F 3x
-    assert H.HOST_GATHER.launches - launches[0] == 12
-    assert H.HOST_SCATTER.launches - launches[1] == 9
+    # per step: E once in the gather, L's host route once in the apply, no F and no B
+    assert H.HOST_GATHER.launches - launches[0] == 3
+    assert H.HOST_SCATTER.launches - launches[1] == 0
+    assert L.SPARSE_APPLY_HOST.launches - launches[2] == 3
+    assert G.ROW_SCATTER.launches - launches[3] == 0
     emb = on_card.embedding
     torch.testing.assert_close(torch.from_numpy(emb.to_array()), on_cpu.embedding.host_table,
                                rtol=1e-5, atol=1e-5)
@@ -1981,15 +1984,17 @@ def test_world4_sharded_csr_sample_on_one_card(dev, world_tier):
 
 def test_world4_host_tier_on_one_card(dev, world_tier):
     """The host tier over 4 ranks on card 0 (each rank's pinned shard, E and
-    F through its mapped pointer, A and B on its cache lines) trains as the
-    device embedding over them, bit for bit on integer gradients, gathers
-    the same rows, and keeps its cache coherent on every rank."""
+    kernel L's host route through its mapped pointer, A on its cache lines,
+    B in the exchange's un-permute) trains as the device embedding over
+    them, bit for bit on integer gradients, gathers the same rows, and keeps
+    its cache coherent on every rank; F is not launched."""
     for out in world_tier:
         hg, dg, ht, dt, coherent, launches = out["host"]
         assert torch.equal(hg, dg) and coherent
         np.testing.assert_array_equal(ht, dt)
-        for k in ("host_gather", "host_scatter", "row_gather", "row_scatter"):
+        for k in ("host_gather", "sparse_apply_host", "row_gather", "row_scatter"):
             assert launches[k] > 0, launches
+        assert launches["host_scatter"] == 0, launches
 
 
 def test_world4_cached_gather_and_step_on_one_card(dev, world_tier):
@@ -2287,3 +2292,191 @@ def test_graphed_epoch_raises_when_capture_fails(dev, monkeypatch):
     assert st.epoch_graph is None and st.embedding.step == 0
     torch.cuda.synchronize()
 
+
+
+# -- the twentieth slice: kernel L's host route, the host tier's apply -------
+
+
+def _pinned_at(t, offset):
+    """A pinned copy of ``t`` that starts ``offset`` rows into a larger
+    pinned allocation (0: a tensor of its own)."""
+    big = H.pinned_empty((t.shape[0] + offset, t.shape[1]), t.dtype)
+    big.fill_(7)
+    view = big[offset:]
+    view.copy_(t)
+    return view
+
+
+def composed_host(table, slots, ids, grads, opt, step, lr, lines, cache_rows):
+    """The host tier's apply before kernel L's host route: kernel E on the
+    table and each slot, the optimizer's update on the card, kernel F on
+    each, kernel B on the cache lines."""
+    names = tuple(sorted(slots))
+    rows = H.host_gather_rows(table, ids, _sort=False).float()
+    srows = {s: H.host_gather_rows(slots[s], ids, _sort=False) for s in names}
+    new_rows, new_srows = opt.update(rows, grads.float(), srows, step, lr)
+    new_rows = new_rows.to(table.dtype).contiguous()
+    H.host_scatter_rows(table, ids, new_rows)
+    for s in names:
+        H.host_scatter_rows(slots[s], ids, new_srows[s].contiguous())
+    valid = (ids >= 0) & (ids < table.shape[0])
+    G.scatter_rows(cache_rows, torch.where(valid & (lines >= 0), lines, -1), new_rows)
+
+
+def _host_case(opt, dtype, D, kind, seed=0):
+    """:func:`apply_case` with each slot's cache line (37 random rows
+    cached, their lines holding their table rows) and the cache rows."""
+    table, slots, ids, grads = apply_case(opt, dtype, D, kind, seed=seed)
+    rs = np.random.RandomState(seed + 100)
+    rows = table.shape[0]
+    cache_map = torch.full((rows,), -1, dtype=torch.int32)
+    hot = torch.from_numpy(rs.permutation(rows)[:37])
+    cache_map[hot] = torch.arange(37, dtype=torch.int32)
+    valid = (ids >= 0) & (ids < rows)
+    lines = torch.where(valid, cache_map[torch.where(valid, ids, 0).long()], -1)
+    cache_rows = torch.zeros((37, D), dtype=dtype)
+    cache_rows[cache_map[hot].long()] = table[hot]
+    return table, slots, ids, grads, lines, cache_rows
+
+
+def _host_both(dev, opt, table, slots, ids, grads, lines, cache_rows, step=APPLY_STEP,
+               offset=0):
+    """Kernel L's host route and the composed route, each on its own pinned
+    copies of a case (the table ``offset`` rows into a larger allocation):
+    the table, slots and cache after each, and the launches of L's host
+    route, E, F and B."""
+    outs = []
+    kerns = (L.SPARSE_APPLY_HOST, H.HOST_GATHER, H.HOST_SCATTER, G.ROW_SCATTER)
+    for route in ("host", "composed"):
+        t = _pinned_at(table, offset)
+        s = {k: _pinned(v) for k, v in slots.items()}
+        c = cache_rows.to(dev)
+        args = (t, s, ids.to(dev), grads.to(dev), opt, step, APPLY_LR)
+        before = [k.launches for k in kerns]
+        if route == "host":
+            L.apply_rows_host(*args, lines=lines.to(dev), cache_rows=c)
+        else:
+            composed_host(*args, lines.to(dev), c)
+        torch.cuda.synchronize()
+        outs.append((t.clone(), {k: v.clone() for k, v in s.items()}, c.cpu(),
+                     tuple(k.launches - b for k, b in zip(kerns, before))))
+    return outs
+
+
+def _host_checks(got, ref, table, ids, lines, cache_rows):
+    """Bit-equal states and caches; untouched rows unchanged; every line of
+    the cache equal to its host row after the step."""
+    assert _same_state(got, ref) and same_bits(got[2], ref[2])
+    n = table.shape[0]
+    valid = ((ids >= 0) & (ids < n)).numpy()
+    untouched = np.ones(n, bool)
+    untouched[ids.numpy()[valid]] = False
+    assert same_bits(got[0][untouched], table[untouched])
+    lines = lines.numpy()
+    hit = np.nonzero(valid & (lines >= 0))[0]
+    for i in hit:  # a touched cached row: its line holds the new host row
+        assert same_bits(got[2][lines[i]], got[0][ids[i]])
+    kept = np.setdiff1d(np.arange(cache_rows.shape[0]), lines[hit])
+    assert same_bits(got[2][kept], cache_rows[kept])  # an untouched line keeps its row
+
+
+@pytest.mark.parametrize("kind", APPLY_KINDS)
+@pytest.mark.parametrize("D", APPLY_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", list(APPLY_OPTS))
+def test_sparse_apply_host_matches_composed(dev, name, dtype, D, kind):
+    """L's host route against E, the update, F and B on the card, bit for
+    bit, on the CPU tests' cases (padding, ids out of range on both sides,
+    NaN gradients on skipped slots, no slot), with cached rows and rows not
+    cached; one launch a call with a slot, and no E, F or B."""
+    opt = APPLY_OPTS[name]
+    table, slots, ids, grads, lines, cache_rows = _host_case(opt, dtype, D, kind)
+    got, ref = _host_both(dev, opt, table, slots, ids, grads, lines, cache_rows)
+    _host_checks(got, ref, table, ids, lines, cache_rows)
+    assert got[3] == ((0 if kind == "empty" else 1), 0, 0, 0)
+
+
+@pytest.mark.parametrize("R", [1, 2, 31, 32, 33, 255, 256, 257, 511, 512, 513, 4097, 70000])
+@pytest.mark.parametrize("D", [256, 48, 16])
+def test_sparse_apply_host_batch_sizes(dev, R, D):
+    """From one slot to 70,000 over a table of 100,000 rows in a larger
+    pinned allocation (an offset of 3 rows), LazyAdam, the last third
+    padding, ascending slots as the apply gives them."""
+    opt = APPLY_OPTS["lazy_adam"]
+    rs = np.random.RandomState(R)
+    n = 100_000
+    table = torch.from_numpy(rs.randn(n, D).astype(np.float32))
+    slots = {"m": torch.from_numpy(rs.randn(n, D).astype(np.float32) * 1e-3),
+             "v": torch.from_numpy(rs.rand(n, D).astype(np.float32) * 1e-6)}
+    ids = torch.from_numpy(np.sort(rs.permutation(n)[:R]).astype(np.int64))
+    ids[R - R // 3:] = n
+    grads = torch.from_numpy(rs.randn(R, D).astype(np.float32))
+    hot = torch.from_numpy(rs.permutation(n)[:1000])
+    cache_map = torch.full((n,), -1, dtype=torch.int32)
+    cache_map[hot] = torch.arange(1000, dtype=torch.int32)
+    valid = ids < n
+    lines = torch.where(valid, cache_map[torch.where(valid, ids, 0)], -1)
+    cache_rows = torch.zeros((1000, D))
+    cache_rows[cache_map[hot].long()] = table[hot]
+    got, ref = _host_both(dev, opt, table, slots, ids, grads, lines, cache_rows, offset=3)
+    _host_checks(got, ref, table, ids, lines, cache_rows)
+    assert got[3] == (1, 0, 0, 0)
+
+
+@pytest.mark.parametrize("name", ["lazy_adam", "adam_w", "rms_prop", "sgd_wd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_sparse_apply_host_table_at_an_offset(dev, name, dtype):
+    """A table 5 rows into a larger pinned allocation (its device address
+    from the allocation's base and the table's offset), and state tables
+    of their own: the host route's bits, and the rows before the table
+    untouched."""
+    opt = APPLY_OPTS[name]
+    table, slots, ids, grads, lines, cache_rows = _host_case(opt, dtype, 64, "mixed", seed=9)
+    got, ref = _host_both(dev, opt, table, slots, ids, grads, lines, cache_rows, offset=5)
+    _host_checks(got, ref, table, ids, lines, cache_rows)
+    assert got[3][0] == 1
+    t = _pinned_at(table, 5)
+    L.apply_rows_host(t, {k: _pinned(v) for k, v in slots.items()}, ids.to(dev), grads.to(dev),
+                      opt, APPLY_STEP, APPLY_LR)
+    torch.cuda.synchronize()
+    assert bool((t._base[:5] == 7).all()) and same_bits(t, got[0])
+
+
+@pytest.mark.parametrize("name", ["lazy_adam", "adam_w"])
+def test_sparse_apply_host_step_row_is_the_int_step(dev, name):
+    """The host route with an eager step's scalars and with that step's
+    row of ``step_table`` on the card gives the same bits as the composed
+    route."""
+    opt = APPLY_OPTS[name]
+    case = _host_case(opt, torch.float32, 64, "mixed", seed=6)
+    table = opt.step_table([17], dev)
+    eager, ref = _host_both(dev, opt, *case, step=17)
+    graphed, _ = _host_both(dev, opt, *case, step=table[0])
+    assert _same_state(eager, ref) and _same_state(graphed, ref)
+    assert same_bits(eager[2], graphed[2])
+
+
+def test_sparse_apply_host_refuses_memory_that_is_not_pinned(dev):
+    """A table or a state table that is not pinned raises, and nothing is
+    launched; a foreign optimizer takes the composed route on the card."""
+    opt = APPLY_OPTS["lazy_adam"]
+    table, slots, ids, grads, lines, cache_rows = _host_case(opt, torch.float32, 16, "mixed",
+                                                             seed=10)
+    before = L.SPARSE_APPLY_HOST.launches
+    with pytest.raises(CudaError, match="not in pinned"):
+        L.apply_rows_host(table, {k: _pinned(v) for k, v in slots.items()}, ids.to(dev),
+                          grads.to(dev), opt, 1, 0.1)
+    with pytest.raises(CudaError, match="not in pinned"):
+        L.apply_rows_host(_pinned(table), slots, ids.to(dev), grads.to(dev), opt, 1, 0.1)
+    assert L.SPARSE_APPLY_HOST.launches == before
+    sgd = ScaledSGD()
+    t1, t2 = _pinned(table), table.clone()
+    c1, c2 = cache_rows.to(dev), cache_rows.clone()
+    kerns = (L.SPARSE_APPLY_HOST, H.HOST_GATHER, H.HOST_SCATTER, G.ROW_SCATTER)
+    counts = [k.launches for k in kerns]
+    L.apply_rows_host(t1, {}, ids.to(dev), grads.to(dev), sgd, 1, 0.5, lines=lines.to(dev),
+                      cache_rows=c1)
+    assert [k.launches - c for k, c in zip(kerns, counts)] == [0, 1, 1, 1]
+    L.apply_rows_host_plain(t2, {}, ids, grads, sgd, 1, 0.5, lines=lines, cache_rows=c2)
+    torch.cuda.synchronize()
+    assert same_bits(t1, t2) and same_bits(c1.cpu(), c2)

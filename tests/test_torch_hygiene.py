@@ -298,21 +298,25 @@ def test_library_path_tracks_the_headers(tmp_path):
 
 
 def test_kernel_helpers_are_defined_once():
-    """The copies into shared memory, the window rule of kernels G and H
-    and the direct drain of kernels I and J each have one definition in
-    ``csrc/``, and every kernel that uses one includes its header."""
+    """The copies into shared memory, the window rule of kernels G and H,
+    the direct drain of kernels I and J and the device address of a mapped
+    host tensor (kernels E, F and L's host route) each have one definition
+    in ``csrc/``, and every kernel that uses one includes its header."""
     texts = {os.path.basename(p): open(p).read()
              for p in glob.glob(os.path.join(kernels.CSRC, "*.cu*"))}
     for pattern, home in ((r"void copy_to_shared\(", "async_copy.cuh"),
                           (r"MAX_DYNAMIC_SMEM =", "async_copy.cuh"),
                           (r"bool tile_staged\(", "csr_tiles.cuh"),
-                          (r"void drain\(", "direct_gather.cuh")):
+                          (r"void drain\(", "direct_gather.cuh"),
+                          (r"cudaError_t device_address\(", "host_address.cuh")):
         assert [n for n, t in texts.items() if re.search(pattern, t)] == [home], pattern
     assert '#include "async_copy.cuh"' in texts["csr_tiles.cuh"]
     for src, header in (("sorted_gather.cu", "async_copy.cuh"),
                         ("sorted_gather.cu", "direct_gather.cuh"),
                         ("row_gather.cu", "direct_gather.cuh"),
-                        ("csr_spmm.cu", "csr_tiles.cuh"), ("csr_sddmm.cu", "csr_tiles.cuh")):
+                        ("csr_spmm.cu", "csr_tiles.cuh"), ("csr_sddmm.cu", "csr_tiles.cuh"),
+                        ("host_rows.cu", "host_address.cuh"),
+                        ("sparse_apply.cu", "host_address.cuh")):
         assert f'#include "{header}"' in texts[src], (src, header)
 
 

@@ -58,12 +58,14 @@
 //
 // Addresses: the caller passes the host allocation's base pointer and the
 // table's byte offset in it; the entry point resolves the base's device
-// address with cudaHostGetDevicePointer (never assuming the two are equal)
-// and returns that call's error when the memory is not pinned and mapped.
+// address with cudaHostGetDevicePointer (host_address.cuh, never assuming the
+// two are equal) and returns that call's error when the memory is not pinned
+// and mapped.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "host_address.cuh"
 #include "row_scatter.cuh"
 
 namespace {
@@ -198,21 +200,6 @@ cudaError_t launch_gather(const void* host, const void* slots, int slots64, cons
   return cudaGetLastError();
 }
 
-// Device address of byte `offset` of the pinned, mapped host allocation that
-// starts at `base`; 0 and the CUDA error otherwise (the error is also cleared
-// from this runtime's last-error slot, so the next launch does not report it).
-cudaError_t device_address(const void* base, int64_t offset, int vec_bytes, char** dev) {
-  void* d = nullptr;
-  cudaError_t e = cudaHostGetDevicePointer(&d, const_cast<void*>(base), 0);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return e;
-  }
-  *dev = static_cast<char*>(d) + offset;
-  if (reinterpret_cast<uintptr_t>(*dev) % uintptr_t(vec_bytes)) return cudaErrorMisalignedAddress;
-  return cudaSuccess;
-}
-
 bool bad_args(int64_t n_rows, int64_t n_slots, int64_t row_bytes, int vec_bytes) {
   return n_slots <= 0 || n_rows <= 0 || row_bytes <= 0 || vec_bytes <= 0 ||
          row_bytes % vec_bytes;
@@ -231,7 +218,7 @@ extern "C" int wg_host_gather(const void* host_base, int64_t host_offset, const 
       row_bytes / vec_bytes * TILE >= (int64_t(1) << 31) || n_slots / TILE >= (int64_t(1) << 31))
     return int(cudaErrorInvalidValue);
   char* host = nullptr;
-  cudaError_t e = device_address(host_base, host_offset, vec_bytes, &host);
+  cudaError_t e = wg::device_address(host_base, host_offset, vec_bytes, &host);
   if (e != cudaSuccess) return int(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* p = static_cast<const int64_t*>(pos);
@@ -255,7 +242,7 @@ extern "C" int wg_host_scatter(const void* host_base, int64_t host_offset, const
                                int64_t row_bytes, int vec_bytes, void* stream) {
   if (bad_args(n_rows, n_slots, row_bytes, vec_bytes)) return int(cudaErrorInvalidValue);
   char* host = nullptr;
-  cudaError_t e = device_address(host_base, host_offset, vec_bytes, &host);
+  cudaError_t e = wg::device_address(host_base, host_offset, vec_bytes, &host);
   if (e != cudaSuccess) return int(e);
   return int(wg::warp_row_scatter(host, slots, slots64, rows, n_rows, n_slots, row_bytes,
                                   vec_bytes, static_cast<cudaStream_t>(stream)));

@@ -56,19 +56,62 @@
 // (up to 1 % faster at 1 KB rows, 40-150 % slower at 128 bytes) and of 64
 // and 128 KB (1-4 % slower at 1 KB rows, 31-33 % at 128 bytes).
 
+// The host route (wg_sparse_apply_host, the same template with HOST set):
+// the table and the state tables lie in pinned, mapped host memory
+// (HostEmbedding), the gradients, ids and cache on the card. For each valid
+// slot the route reads the gradient from HBM, the table row and each state row
+// over PCIe, applies the same update, writes the new rows back over PCIe and,
+// where lines[i] >= 0, the new table row into cache[lines[i]] on the card.
+// Replaces, on the host tier's apply (wholegraph_tpu/embedding/
+// host_embedding.py:185-248), the TPU's `_host_fetch_kernel` (gather_pallas.py:
+// 1168) or `_host_window_fetch_kernel` (:1290) on the table and each slot, the
+// update, `_host_put_kernel` (:1183) on each, and the cached lines' rewrite
+// (:243-247): in the port kernel E x3, the update, kernel F x3 and kernel B,
+// one after another. The reference runs the optimizer on host-mapped memory
+// too (embedding.cpp:575-767).
+//
+// Bound: bytes over the host link (PCIe Gen5 x16, 64 GB/s each way): each
+// valid row's table and state rows are read once and written once, 3 KB of
+// reads and 3 KB of writes a 1 KB LazyAdam row. The composed route reads, then
+// writes, so its bound is their sum over one direction's rate; here both
+// directions can carry at once, so the bound is the larger of the two.
+//
+// Design for the link: the device route's tiles and walk, whose order is the
+// slots' order (the apply's slots are ascending, and E measured sorted reads
+// of mapped memory 1.25-1.4x faster, host_rows.cu); a thread's loads of its
+// APPLY_ITEMS items are all in flight before it waits; its writes to
+// mapped memory are posted, so it does not wait on them, and the many CTAs
+// resident on each SM are at different phases, some reading while others
+// write, which keeps both directions of the link busy at once. Tiles of
+// APPLY_HOST_TILE_BYTES (8 KB, ops.optim_kernels) keep fewer rows in flight,
+// nearer one another in the table.
+//
+// Measured on an H100 (tools/kernel_variants.py --parts L, device time of a
+// CUDA graph of 5 calls, at the host-tier SAGE step's apply call: 144,846
+// valid rows of 1 KB, 445 MB each way; two calls): 19.3-19.9 ms against the
+// composed route's 27.1-28.0. A probe that only reads takes 15.9-17.5 ms, one
+// that only writes 8.5-8.6 and one that reads the table alone 5.4: lane loads
+// read mapped memory at about 26 GB/s on those machines (E's own reads of the
+// same rows alike), writes went at 52, and the route hides about two thirds
+// of its writes under its reads. The reads bound it there, not the link's 64
+// GB/s each way. Kept out: tiles of 32-128 KB (3-18 % slower than 2-16 KB);
+// 1, 4 and 8 items in flight (within the calls' spread of 0.5-3 ms); 6 CTAs
+// an SM and streaming stores (no faster).
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "direct_gather.cuh"
+#include "host_address.cuh"
 
 namespace {
 
 constexpr int APPLY_THREADS = 256;
 constexpr int APPLY_MAX_TILE = 512;  // slots a tile: 2 a thread at most
 constexpr int APPLY_IPT = APPLY_MAX_TILE / APPLY_THREADS;
-constexpr int APPLY_ITEMS = 2;  // (row, vector) items in flight a thread
+constexpr int APPLY_ITEMS = 2;  // (row, vector) items in flight a thread, on both routes
 
 // optimizers (ops.optim_kernels.OPT_CODES)
 constexpr int OPT_SGD = 0, OPT_ADAM = 1, OPT_ADAMW = 2, OPT_RMSPROP = 3, OPT_ADAGRAD = 4;
@@ -175,10 +218,15 @@ __device__ __forceinline__ void update(float g, float& p, float& a, float& b, co
   }
 }
 
-template <int OPT, int TE, int GE, int N>
+// HOST: the host route. table, sa and sb are then the device addresses of
+// pinned, mapped host tensors, and each valid slot i with lines[i] >= 0 also
+// has its new table row written to cache[lines[i]] on the card; lines may be
+// null (no cache line). The device route ignores lines and cache.
+template <int OPT, int TE, int GE, int N, bool HOST>
 __global__ void __launch_bounds__(APPLY_THREADS)
 sparse_apply_kernel(void* __restrict__ table, float* __restrict__ sa, float* __restrict__ sb,
                     const void* __restrict__ ids, int ids64, const void* __restrict__ grads,
+                    const int* __restrict__ lines, void* __restrict__ cache,
                     int64_t n_rows, int64_t n_ids, int vpr, int tile, Hyper h) {
   constexpr int U = APPLY_ITEMS;
   constexpr int W = APPLY_THREADS / 32;
@@ -188,16 +236,20 @@ sparse_apply_kernel(void* __restrict__ table, float* __restrict__ sa, float* __r
   __shared__ int offs[NC + 1];
   __shared__ int64_t tile_dst[APPLY_MAX_TILE];  // the tile's valid ids
   __shared__ int tile_src[APPLY_MAX_TILE];      // their slots within the tile
+  __shared__ int tile_line[HOST ? APPLY_MAX_TILE : 1];  // their cache lines, -1 for none
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t t0 = int64_t(blockIdx.x) * tile;
   const int m_ids = int(n_ids - t0 < tile ? n_ids - t0 : tile);
 
-  // the tile's ids, coalesced, then compacted by ballot (kernel B's scheme)
+  // the tile's ids (and, on the host route, cache lines), coalesced, then
+  // compacted by ballot (kernel B's scheme)
   int64_t id[APPLY_IPT];
+  [[maybe_unused]] int line[APPLY_IPT];
 #pragma unroll
   for (int c = 0; c < APPLY_IPT; ++c) {
     const int j = c * APPLY_THREADS + tid;
     id[c] = j < m_ids ? wg::load_id(ids, ids64, t0 + j) : -1;
+    if constexpr (HOST) line[c] = j < m_ids && lines ? lines[t0 + j] : -1;
   }
   unsigned ball[APPLY_IPT];
 #pragma unroll
@@ -225,6 +277,7 @@ sparse_apply_kernel(void* __restrict__ table, float* __restrict__ sa, float* __r
       const int p = offs[c * W + warp] + __popc(ball[c] & below);
       tile_dst[p] = id[c];
       tile_src[p] = c * APPLY_THREADS + tid;
+      if constexpr (HOST) tile_line[p] = line[c];
     }
   const int m = offs[NC];
   __syncthreads();
@@ -240,7 +293,7 @@ sparse_apply_kernel(void* __restrict__ table, float* __restrict__ sa, float* __r
   int i = tid / vpr, v = tid % vpr;
   for (int k0 = tid; k0 < total; k0 += APPLY_THREADS * U) {
     float g[U][N], p[U][N], a[U][N], b[U][N];
-    int64_t off[U];
+    int64_t off[U], coff[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {  // every load of the batch before any arithmetic
       off[u] = -1;
@@ -249,6 +302,7 @@ sparse_apply_kernel(void* __restrict__ table, float* __restrict__ sa, float* __r
       if (k0 + u * APPLY_THREADS < total) {
         const int64_t col = int64_t(v) * N;
         off[u] = tile_dst[i] * dim + col;
+        if constexpr (HOST) coff[u] = tile_line[i] >= 0 ? tile_line[i] * dim + col : -1;
         load_vec<GE, N, true>(grads, (t0 + tile_src[i]) * dim + col, g[u]);
         load_vec<TE, N, false>(table, off[u], p[u]);
         if constexpr (NS >= 1) load_vec<E_F32, N, false>(sa, off[u], a[u]);
@@ -269,6 +323,8 @@ sparse_apply_kernel(void* __restrict__ table, float* __restrict__ sa, float* __r
       store_vec<TE, N>(table, off[u], p[u]);
       if constexpr (NS >= 1) store_vec<E_F32, N>(sa, off[u], a[u]);
       if constexpr (NS >= 2) store_vec<E_F32, N>(sb, off[u], b[u]);
+      if constexpr (HOST)
+        if (coff[u] >= 0) store_vec<TE, N>(cache, coff[u], p[u]);
     }
   }
 }
@@ -280,37 +336,67 @@ struct Args {
   const void* ids;
   int ids64;
   const void* grads;
+  const int* lines;
+  void* cache;
   int64_t n_rows, n_ids;
   int vpr, tile;
   Hyper h;
   cudaStream_t stream;
 };
 
-template <int OPT, int TE, int GE, int N>
+template <int OPT, int TE, int GE, int N, bool HOST>
 cudaError_t launch(const Args& a) {
   const unsigned blocks = unsigned((a.n_ids + a.tile - 1) / a.tile);
-  sparse_apply_kernel<OPT, TE, GE, N><<<blocks, APPLY_THREADS, 0, a.stream>>>(
-      a.table, a.sa, a.sb, a.ids, a.ids64, a.grads, a.n_rows, a.n_ids, a.vpr, a.tile, a.h);
+  sparse_apply_kernel<OPT, TE, GE, N, HOST><<<blocks, APPLY_THREADS, 0, a.stream>>>(
+      a.table, a.sa, a.sb, a.ids, a.ids64, a.grads, a.lines, a.cache, a.n_rows, a.n_ids, a.vpr,
+      a.tile, a.h);
   return cudaGetLastError();
 }
 
-template <int OPT, int TE, int GE>
+template <int OPT, int TE, int GE, bool HOST>
 cudaError_t by_vec(int vec, const Args& a) {
-  if (vec == 4) return launch<OPT, TE, GE, 4>(a);
-  if (vec == 1) return launch<OPT, TE, GE, 1>(a);
+  if (vec == 4) return launch<OPT, TE, GE, 4, HOST>(a);
+  if (vec == 1) return launch<OPT, TE, GE, 1, HOST>(a);
   return cudaErrorInvalidValue;
 }
 
 // the table's element type and the gradients': f32 gradients with any table,
-// or gradients of the table's own 16-bit type
-template <int OPT>
+// or, on the device route, gradients of the table's own 16-bit type (the host
+// route takes f32 gradients alone: the apply's are its dedup's sums)
+template <int OPT, bool HOST>
 cudaError_t by_types(int te, int ge, int vec, const Args& a) {
-  if (te == E_F32 && ge == E_F32) return by_vec<OPT, E_F32, E_F32>(vec, a);
-  if (te == E_BF16 && ge == E_F32) return by_vec<OPT, E_BF16, E_F32>(vec, a);
-  if (te == E_BF16 && ge == E_BF16) return by_vec<OPT, E_BF16, E_BF16>(vec, a);
-  if (te == E_F16 && ge == E_F32) return by_vec<OPT, E_F16, E_F32>(vec, a);
-  if (te == E_F16 && ge == E_F16) return by_vec<OPT, E_F16, E_F16>(vec, a);
+  if (te == E_F32 && ge == E_F32) return by_vec<OPT, E_F32, E_F32, HOST>(vec, a);
+  if (te == E_BF16 && ge == E_F32) return by_vec<OPT, E_BF16, E_F32, HOST>(vec, a);
+  if (te == E_F16 && ge == E_F32) return by_vec<OPT, E_F16, E_F32, HOST>(vec, a);
+  if constexpr (!HOST) {
+    if (te == E_BF16 && ge == E_BF16) return by_vec<OPT, E_BF16, E_BF16, false>(vec, a);
+    if (te == E_F16 && ge == E_F16) return by_vec<OPT, E_F16, E_F16, false>(vec, a);
+  }
   return cudaErrorInvalidValue;
+}
+
+template <bool HOST>
+cudaError_t by_opt(int opt, int te, int ge, int vec, const Args& a) {
+  switch (opt) {
+    case OPT_SGD: return by_types<OPT_SGD, HOST>(te, ge, vec, a);
+    case OPT_ADAM: return by_types<OPT_ADAM, HOST>(te, ge, vec, a);
+    case OPT_ADAMW: return by_types<OPT_ADAMW, HOST>(te, ge, vec, a);
+    case OPT_RMSPROP: return by_types<OPT_RMSPROP, HOST>(te, ge, vec, a);
+    case OPT_ADAGRAD: return by_types<OPT_ADAGRAD, HOST>(te, ge, vec, a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The checks both entries share.
+bool bad_args(int opt, int64_t n_rows, int64_t n_ids, int64_t dim, int vec, int tile,
+              const void* table, const void* slot_a, const void* slot_b, const void* ids,
+              const void* grads) {
+  const int ns = opt == OPT_SGD ? 0 : (opt == OPT_ADAM || opt == OPT_ADAMW) ? 2 : 1;
+  return opt < OPT_SGD || opt > OPT_ADAGRAD || n_ids <= 0 || n_rows <= 0 || dim <= 0 ||
+         vec <= 0 || dim % vec || tile <= 0 || tile > APPLY_MAX_TILE ||
+         int64_t(tile) * (dim / vec) >= (int64_t(1) << 31) ||
+         (n_ids + tile - 1) / tile >= (int64_t(1) << 31) || table == nullptr || ids == nullptr ||
+         grads == nullptr || (ns >= 1 && slot_a == nullptr) || (ns >= 2 && slot_b == nullptr);
 }
 
 }  // namespace
@@ -329,26 +415,46 @@ extern "C" int wg_sparse_apply(int opt, void* table, int table_dtype, void* slot
                                int64_t n_rows, int64_t n_ids, int64_t dim, int vec, int tile,
                                float lr, float wd, float b1, float omb1, float b2, float omb2,
                                float eps, float c1, float c2, const void* step, void* stream) {
-  const int ns = opt == OPT_SGD ? 0 : (opt == OPT_ADAM || opt == OPT_ADAMW) ? 2 : 1;
-  if (opt < OPT_SGD || opt > OPT_ADAGRAD || n_ids <= 0 || n_rows <= 0 || dim <= 0 ||
-      vec <= 0 || dim % vec || tile <= 0 || tile > APPLY_MAX_TILE ||
-      int64_t(tile) * (dim / vec) >= (int64_t(1) << 31) ||
-      (n_ids + tile - 1) / tile >= (int64_t(1) << 31) || table == nullptr || ids == nullptr ||
-      grads == nullptr || (ns >= 1 && slot_a == nullptr) || (ns >= 2 && slot_b == nullptr))
+  if (bad_args(opt, n_rows, n_ids, dim, vec, tile, table, slot_a, slot_b, ids, grads))
     return int(cudaErrorInvalidValue);
   Args a{table, static_cast<float*>(slot_a), static_cast<float*>(slot_b), ids, ids64, grads,
-         n_rows, n_ids, int(dim / vec), tile,
+         nullptr, nullptr, n_rows, n_ids, int(dim / vec), tile,
          Hyper{lr, wd, b1, omb1, b2, omb2, eps, c1, c2, static_cast<const float*>(step)},
          static_cast<cudaStream_t>(stream)};
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (opt) {
-    case OPT_SGD: err = by_types<OPT_SGD>(table_dtype, grads_dtype, vec, a); break;
-    case OPT_ADAM: err = by_types<OPT_ADAM>(table_dtype, grads_dtype, vec, a); break;
-    case OPT_ADAMW: err = by_types<OPT_ADAMW>(table_dtype, grads_dtype, vec, a); break;
-    case OPT_RMSPROP: err = by_types<OPT_RMSPROP>(table_dtype, grads_dtype, vec, a); break;
-    case OPT_ADAGRAD: err = by_types<OPT_ADAGRAD>(table_dtype, grads_dtype, vec, a); break;
-  }
-  return int(err);
+  return int(by_opt<false>(opt, table_dtype, grads_dtype, vec, a));
+}
+
+// The host route: as wg_sparse_apply, with the table and the state tables in
+// pinned, mapped host memory, each given as its allocation's base pointer and
+// its byte offset in it (a null base for a state table the optimizer lacks),
+// f32 gradients on the card, and, optionally, `lines` [n_ids] int32 on the
+// card (a slot's cache line, or -1) and `cache` [lines, dim] of the table's
+// type on the card, into whose line the new table row is also written.
+// Returns cudaHostGetDevicePointer's error for memory that is not pinned and
+// mapped, cudaErrorMisalignedAddress for a device address not aligned to vec
+// elements, cudaErrorInvalidValue for lines without cache.
+extern "C" int wg_sparse_apply_host(int opt, const void* table_base, int64_t table_offset,
+                                    int table_dtype, const void* a_base, int64_t a_offset,
+                                    const void* b_base, int64_t b_offset, const void* ids,
+                                    int ids64, const void* grads, const void* lines, void* cache,
+                                    int64_t n_rows, int64_t n_ids, int64_t dim, int vec,
+                                    int tile, float lr, float wd, float b1, float omb1, float b2,
+                                    float omb2, float eps, float c1, float c2, const void* step,
+                                    void* stream) {
+  if (bad_args(opt, n_rows, n_ids, dim, vec, tile, table_base, a_base, b_base, ids, grads) ||
+      (lines != nullptr && cache == nullptr))
+    return int(cudaErrorInvalidValue);
+  const int esize = table_dtype == E_F32 ? 4 : 2;
+  char *table = nullptr, *sa = nullptr, *sb = nullptr;
+  cudaError_t e = wg::device_address(table_base, table_offset, vec * esize, &table);
+  if (e == cudaSuccess && a_base) e = wg::device_address(a_base, a_offset, vec * 4, &sa);
+  if (e == cudaSuccess && b_base) e = wg::device_address(b_base, b_offset, vec * 4, &sb);
+  if (e != cudaSuccess) return int(e);
+  Args a{table, reinterpret_cast<float*>(sa), reinterpret_cast<float*>(sb), ids, ids64, grads,
+         static_cast<const int*>(lines), cache, n_rows, n_ids, int(dim / vec), tile,
+         Hyper{lr, wd, b1, omb1, b2, omb2, eps, c1, c2, static_cast<const float*>(step)},
+         static_cast<cudaStream_t>(stream)};
+  return int(by_opt<true>(opt, table_dtype, E_F32, vec, a));
 }
 
 extern "C" const char* wg_error_string(int err) {

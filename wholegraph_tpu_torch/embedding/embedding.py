@@ -380,12 +380,14 @@ class Embedding:
     # -- host access (tests / checkpoint) -------------------------------------
 
     def _logical(self, t: torch.Tensor) -> np.ndarray:
-        if self.world == 1:
-            return t.detach().cpu().numpy()
+        if self.world == 1:  # numpy has no bfloat16: widened to f32, exactly, as at world W
+            t = t.detach().cpu()
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         return ShardedTable(t, self.plan, "device", self.device, self.mesh, self.axis).to_array()
 
     def to_array(self) -> np.ndarray:
-        """The logical ``[n, dim]`` table on the host (at world W a collective)."""
+        """The logical ``[n, dim]`` table on the host, a bfloat16 one widened
+        to float32, exactly (at world W a collective)."""
         return self._logical(self.table)
 
     def slot_to_array(self, name: str) -> np.ndarray:

@@ -7,7 +7,8 @@ memory, and the card keeps a cache of hot rows.
 
 - ``host_table`` [rows, D] and ``host_slots`` [rows, D] f32 are CPU tensors
   in page-locked, mapped memory (:func:`~..ops.host_kernels.pinned_empty`);
-  the card reads and writes their rows over PCIe with kernels E and F.
+  the card reads their rows over PCIe with kernel E (the gather) and reads,
+  updates and writes them back with kernel L's host route (the apply).
 - ``cache_map`` [rows] int32 on the card maps a row's slot to its cache
   line or -1; ``cache_rows`` [hot_cap, D] on the card holds the cached
   rows. The hot set is static between :meth:`HostEmbedding.rebuild_cache`
@@ -15,7 +16,8 @@ memory, and the card keeps a cache of hot rows.
   ``TouchCounter``).
 - Coherence invariant: for every cached row, ``cache_rows[line]`` equals
   the host row. Every update writes the host (the source of truth) and
-  the cached line (``update_cache_direct``, embedding.cpp:640-650).
+  the cached line (``update_cache_direct``, embedding.cpp:640-650), in the
+  same launch.
 
 At world 1 ``rows`` is ``n`` and a row's slot is its id. At world W
 (``mesh=``, one process a rank) each rank holds its shard of the table and
@@ -32,8 +34,8 @@ steps the owner's rows (``_host_apply_shard``, ``:185-249``).
 As the port's :class:`~.embedding.Embedding`, the object owns its tensors
 and updates them in place.
 
-Ordering: kernels E and F run on the current stream, so a step's E reads
-see the previous step's F writes. Host code that touches the pinned
+Ordering: kernels E and L run on the current stream, so a step's E reads
+see the previous step's L writes. Host code that touches the pinned
 tensors (:meth:`from_array`, :meth:`init`, :meth:`to_array`,
 :meth:`slot_to_array`) first waits for the card, because a kernel may still
 be writing them; so does every collective on the gloo route
@@ -52,8 +54,9 @@ import torch
 from ..memory import PartitionPlan, ShardedTable
 from ..memory.sharded_table import default_plan, local_rows
 from ..ops.gather import EXCHANGE_STATS, _bucket_cap, _in_range, gather_exact_loop
-from ..ops.gather_kernels import gather_rows, scatter_rows
-from ..ops.host_kernels import host_gather_rows, host_scatter_rows, pinned_empty
+from ..ops.gather_kernels import gather_rows
+from ..ops.host_kernels import host_gather_rows, pinned_empty
+from ..ops.optim_kernels import apply_rows_host
 from ..parallel.mesh import Mesh
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.dtypes import as_torch_dtype
@@ -247,11 +250,14 @@ class HostEmbedding:
         Duplicate ids are summed; masked-out ids and ids outside ``[0, n)``
         touch nothing. At world W every rank passes its own (ids, grads), as
         many on every rank: :func:`exchange_grads_exact` sums duplicates
-        within and across ranks on their owner. The owner's touched rows and
-        their optimizer state are read from the host (kernel E, once per
-        tensor), updated on the card, written back to the host (kernel F,
-        once per tensor), and the cached lines among them are rewritten
-        (kernel B, -1 for the others)."""
+        within and across ranks on their owner. The owner's touched rows,
+        their optimizer state and the cached lines among them go through
+        :func:`~..ops.optim_kernels.apply_rows_host` at the owner's slots
+        (ascending): on a card one launch of kernel L's host route reads the
+        rows over PCIe, updates them, writes them back and rewrites their
+        cache lines; an optimizer from outside the registry runs kernel E on
+        the table and each slot, its update, kernel F on each and kernel B
+        on the lines."""
         check_input(ids.dim() == 1 and grads.shape == (ids.shape[0], self.dim),
                     f"ids {tuple(ids.shape)} / grads {tuple(grads.shape)} mismatch")
         self.step += 1
@@ -268,18 +274,10 @@ class HostEmbedding:
         slot = torch.where(valid, uids, 0)
         if self.world > 1:
             slot = self.plan.local_slot(slot)
-        slot = torch.where(valid, slot, -1)
-        names = tuple(sorted(self.host_slots))
-        # the valid ids are ascending, and so are their slots: kernel E needs no sort
-        rows = host_gather_rows(self.host_table, slot, _sort=False).float()
-        srows = {s: host_gather_rows(self.host_slots[s], slot, _sort=False) for s in names}
-        new_rows, new_srows = self.optimizer.update(rows, ugrads, srows, self.step, lr)
-        new_rows = new_rows.to(self.dtype).contiguous()
-        host_scatter_rows(self.host_table, slot, new_rows)
-        for s in names:
-            host_scatter_rows(self.host_slots[s], slot, new_srows[s].contiguous())
-        line = self.cache_map[torch.where(valid, slot, 0).long()]
-        scatter_rows(self.cache_rows, torch.where(valid & (line >= 0), line, -1), new_rows)
+        line = torch.where(valid, self.cache_map[torch.where(valid, slot, 0).long()], -1)
+        # the valid ids are ascending, and so are their slots
+        apply_rows_host(self.host_table, self.host_slots, torch.where(valid, slot, -1), ugrads,
+                        self.optimizer, self.step, lr, lines=line, cache_rows=self.cache_rows)
         return self
 
     def make_train_step(self, loss_fn: Callable, lr: float) -> Callable:
@@ -295,13 +293,13 @@ class HostEmbedding:
 
     def _logical(self, t: torch.Tensor) -> np.ndarray:
         self._wait()
-        if self.world == 1:
-            return t.numpy().copy()
+        if self.world == 1:  # numpy has no bfloat16: widened to f32, exactly, as at world W
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
         return ShardedTable(t, self.plan, "host", self.device, self.mesh, self.axis).to_array()
 
     def to_array(self) -> np.ndarray:
-        """The logical ``[n, dim]`` table (at world W a collective: every
-        rank gets the whole table)."""
+        """The logical ``[n, dim]`` table, a bfloat16 one widened to float32,
+        exactly (at world W a collective: every rank gets the whole table)."""
         return self._logical(self.host_table)
 
     def slot_to_array(self, name: str) -> np.ndarray:

@@ -11,7 +11,8 @@ from .gather_kernels import (ROW_GATHER, ROW_GATHER_MASKED, ROW_SCATTER, SAMPLE_
 from .graph_ops import add_self_loop_padded, append_unique, csr_add_self_loop, padded_to_csr
 from .host_kernels import (HOST_GATHER, HOST_SCATTER, host_gather_rows, host_scatter_rows,
                            pinned_empty)
-from .optim_kernels import SPARSE_APPLY, apply_rows, apply_rows_plain
+from .optim_kernels import (SPARSE_APPLY, SPARSE_APPLY_HOST, apply_rows, apply_rows_host,
+                            apply_rows_plain)
 from .sampling import (SAMPLE_HOP, SAMPLE_HOP_WEIGHTED, SampleResult, csr_sample_neighbors,
                        interleave_col_weights, sample_hop_uniform, sample_hop_weighted)
 from .spmm import (padded_gather_neighbors, padded_reduce, padded_reduce_windowed,
@@ -23,7 +24,7 @@ from .spmm_kernels import (CSR_SDDMM, CSR_SPMM, NEIGHBOR_AGG, CsrSddmm, CsrSpmm,
 # every hand-written kernel of the port, one per C entry point
 KERNELS = (ROW_GATHER, ROW_SCATTER, SAMPLE_HOP, SAMPLE_COLS, NEIGHBOR_AGG, HOST_GATHER,
            HOST_SCATTER, CSR_SPMM, CSR_SDDMM, SORTED_GATHER, ROW_GATHER_MASKED, SAMPLE_HOP_WEIGHTED,
-           SPARSE_APPLY)
+           SPARSE_APPLY, SPARSE_APPLY_HOST)
 
 __all__ = [
     "KERNELS",
@@ -47,6 +48,7 @@ __all__ = [
     "scatter_rows_masked",
     "apply_rows",
     "apply_rows_plain",
+    "apply_rows_host",
     "append_unique",
     "padded_to_csr",
     "csr_add_self_loop",

@@ -12,12 +12,23 @@ each slot, its own ``update``, kernel B on each (:func:`apply_route`). On CPU
 tensors, and only there, it runs :func:`apply_rows_plain`, the same
 composition through the plain gather and scatter, which is also what L is
 checked against on the card, bit for bit.
+
+:func:`apply_rows_host` is the same step on a table and state tables in
+pinned, mapped host memory (``HostEmbedding``), the counterpart of
+``wholegraph_tpu/embedding/host_embedding.py``'s ``_host_apply_shard``
+(``:185-248``: ``_host_take`` on the table and each slot, the update,
+``_host_write`` on each, the cached lines' rewrite): on a card, kernel L's
+host route, one launch that reads the rows over PCIe, updates them, writes
+them back and rewrites their cache lines; an optimizer from outside the
+registry runs kernel E on the table and each slot, its own ``update``,
+kernel F on each and kernel B on the cache lines. On the CPU it runs
+:func:`apply_rows_host_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -26,6 +37,8 @@ from .. import kernels
 from ..utils.error import check_input
 from .gather_kernels import (gather_rows, gather_rows_plain, on_cuda, scatter_rows,
                              scatter_rows_plain)
+from .host_kernels import (_address, _on_card, host_gather_rows, host_gather_rows_plain,
+                           host_scatter_rows, host_scatter_rows_plain)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
@@ -34,6 +47,15 @@ SPARSE_APPLY = kernels.Kernel(
     [_I, _P, _I, _P, _P, _P, _I, _P, _I, _L, _L, _L, _I, _I] + [_F] * 9 + [_P, _P],
     # _gather_kernel and _scatter_kernel on the apply path (embedding.py:209-242)
     replaces="wholegraph_tpu/ops/gather_pallas.py:35,102",
+)
+
+SPARSE_APPLY_HOST = kernels.Kernel(
+    "sparse_apply_host", "sparse_apply.cu", "wg_sparse_apply_host",
+    [_I, _P, _L, _I, _P, _L, _P, _L, _P, _I, _P, _P, _P, _L, _L, _L, _I, _I] + [_F] * 9
+    + [_P, _P],
+    # on the host tier's apply (host_embedding.py:185-248): _host_fetch_kernel, _host_put_kernel
+    # and _host_window_fetch_kernel
+    replaces="wholegraph_tpu/ops/gather_pallas.py:1168,1183,1290",
 )
 
 # the optimizer codes and element types of csrc/sparse_apply.cu
@@ -47,17 +69,22 @@ _ELEMENT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # slower at 1 KB and 31-33 % at 128 bytes.
 APPLY_TILE_BYTES = 32 * 1024
 APPLY_MAX_TILE = 512
+# The same on the host route, over pinned, mapped host tables: 8 slots of 1 KB rows. On an
+# H100 (tools/kernel_variants.py --parts L, the host-tier step's apply call) 2-16 KB ran 2-7 %
+# faster than 32 KB, 64-128 KB 9-18 % slower: fewer rows in flight at once keep the reads
+# nearer one another in the table.
+APPLY_HOST_TILE_BYTES = 8 * 1024
 
 StepLike = Union[int, torch.Tensor]
 
 
-def apply_tile(row_bytes: int) -> int:
+def apply_tile(row_bytes: int, tile_bytes: int = 0) -> int:
     """Slots per CTA of kernel L for f32 rows of ``row_bytes`` (``dim * 4``,
     the update's rows whatever the table's type): as many as fill
-    APPLY_TILE_BYTES were all of them valid, from 1 to APPLY_MAX_TILE (2 a
-    thread). A masked slot costs a CTA only its id, so narrow rows take the
-    most slots."""
-    return max(1, min(APPLY_MAX_TILE, APPLY_TILE_BYTES // max(row_bytes, 1)))
+    ``tile_bytes`` (APPLY_TILE_BYTES unless given) were all of them valid,
+    from 1 to APPLY_MAX_TILE (2 a thread). A masked slot costs a CTA only its
+    id, so narrow rows take the most slots."""
+    return max(1, min(APPLY_MAX_TILE, (tile_bytes or APPLY_TILE_BYTES) // max(row_bytes, 1)))
 
 
 def apply_route(optimizer) -> str:
@@ -210,6 +237,126 @@ def apply_rows(table: torch.Tensor, slots: Dict[str, torch.Tensor], ids: torch.T
     return None
 
 
-__all__ = ["SPARSE_APPLY", "APPLY_TILE_BYTES", "APPLY_MAX_TILE", "apply_tile", "apply_route",
-           "kernel_params", "apply_rows", "apply_rows_plain", "OPT_SGD", "OPT_ADAM",
+# ---------------------------------------------------------------------------
+# The host route: the table and its state tables in pinned, mapped host memory
+# ---------------------------------------------------------------------------
+
+
+def _check_host(table, slots, ids, grads, lines, cache_rows) -> None:
+    _check(table, slots, ids, grads)
+    check_input((lines is None) == (cache_rows is None), "lines and cache_rows come together")
+    if lines is not None:
+        check_input(lines.shape == ids.shape and lines.dtype in (torch.int32, torch.int64),
+                    f"lines must be int32/int64 {tuple(ids.shape)}, got {lines.dtype} "
+                    f"{tuple(lines.shape)}")
+        check_input(cache_rows.dim() == 2 and cache_rows.shape[1] == table.shape[1]
+                    and cache_rows.dtype == table.dtype,
+                    f"cache_rows must be [H, {table.shape[1]}] {table.dtype}, got "
+                    f"{cache_rows.dtype} {tuple(cache_rows.shape)}")
+
+
+def _composed_host(gather, scatter, line_scatter, table, slots, ids, grads, optimizer, step, lr,
+                   lines, cache_rows) -> None:
+    """Rows by ``gather`` (a host row gather), ``optimizer.update`` in f32,
+    rows back by ``scatter`` (a host row scatter), and the new table rows
+    into ``cache_rows`` at ``lines`` by ``line_scatter``; slots outside ``[0,
+    N)`` touch nothing."""
+    names = tuple(sorted(slots))
+    rows = gather(table, ids).float()
+    srows = {s: gather(slots[s], ids) for s in names}
+    new_rows, new_srows = optimizer.update(rows, grads.float(), srows, step, lr)
+    new_rows = new_rows.to(table.dtype).contiguous()
+    scatter(table, ids, new_rows)
+    for s in names:
+        scatter(slots[s], ids, new_srows[s].contiguous())
+    if lines is not None:
+        valid = (ids >= 0) & (ids < table.shape[0])
+        line_scatter(cache_rows, torch.where(valid & (lines >= 0), lines, -1), new_rows)
+
+
+def _host_take(table, ids):
+    # the apply's slots are ascending and unique: kernel E needs no sort
+    return host_gather_rows(table, ids, _sort=False)
+
+
+def apply_rows_host_plain(table: torch.Tensor, slots: Dict[str, torch.Tensor], ids: torch.Tensor,
+                          grads: torch.Tensor, optimizer, step: StepLike, lr: float, *,
+                          lines: Optional[torch.Tensor] = None,
+                          cache_rows: Optional[torch.Tensor] = None) -> None:
+    """The optimizer's step on the host ``table`` and its host ``slots`` at
+    ``ids``, in place: ``host_gather_rows_plain`` of the table (widened to
+    f32) and of each slot, ``optimizer.update`` with ``grads.float()``,
+    ``host_scatter_rows_plain`` of the new rows (the table's rounded to its
+    type), and ``scatter_rows_plain`` of the new table rows into
+    ``cache_rows`` at ``lines`` where a valid slot has one (>= 0). Slots
+    outside ``[0, N)`` touch nothing; ids in range must be unique."""
+    _check_host(table, slots, ids, grads, lines, cache_rows)
+    _composed_host(host_gather_rows_plain, host_scatter_rows_plain, scatter_rows_plain, table,
+                   slots, ids, grads, optimizer, step, lr, lines, cache_rows)
+
+
+def apply_rows_host(table: torch.Tensor, slots: Dict[str, torch.Tensor], ids: torch.Tensor,
+                    grads: torch.Tensor, optimizer, step: StepLike, lr: float, *,
+                    lines: Optional[torch.Tensor] = None,
+                    cache_rows: Optional[torch.Tensor] = None) -> None:
+    """:func:`apply_rows` on a ``table`` [N, D] and f32 ``slots`` (name ->
+    [N, D]) in pinned, mapped host memory, with ``ids`` [R] and f32 ``grads``
+    [R, D] (widened if not) on the card, in place; with ``lines`` [R] (a
+    slot's line of ``cache_rows``, or -1) and ``cache_rows`` [H, D] of the
+    table's type on the card, each valid slot's new table row is also
+    written into its cache line, so a cache that equalled the host rows
+    still does. Ids in range must be unique; ascending ids read the host in
+    address order.
+
+    CPU ids: :func:`apply_rows_host_plain`. CUDA ids: a table or slot that
+    is not pinned raises :class:`CudaError`; an optimizer of the registry
+    (:func:`apply_route`) runs kernel L's host route, one launch,
+    bit-equal to kernel E on the table and each slot, the update on the
+    card, kernel F on each and kernel B on the lines; any other optimizer
+    runs that composed route."""
+    _check_host(table, slots, ids, grads, lines, cache_rows)
+    card = [ids, grads] + ([lines, cache_rows] if lines is not None else [])
+    on_card = [_on_card(t, *card) for t in (table, *slots.values())]
+    if not on_card[0]:
+        return apply_rows_host_plain(table, slots, ids, grads, optimizer, step, lr, lines=lines,
+                                     cache_rows=cache_rows)
+    if apply_route(optimizer) == "composed":
+        return _composed_host(_host_take, host_scatter_rows, scatter_rows, table, slots, ids,
+                              grads, optimizer, step, lr, lines, cache_rows)
+    code, floats, row = kernel_params(optimizer, step, lr)
+    names = optimizer.slot_names
+    check_input(set(names) == set(slots), f"slots {sorted(slots)} != {sorted(names)}")
+    check_input(table.dtype in _ELEMENT, f"kernel L takes float32, bfloat16 or float16 "
+                                         f"tables, got {table.dtype}")
+    R, D = grads.shape
+    if R == 0 or D == 0 or table.shape[0] == 0:
+        return None
+    ids, grads = ids.contiguous(), grads.float().contiguous()
+    state = [slots[s] for s in names]
+    if row is not None:
+        check_input(row.device == ids.device, "the step row must lie on the ids' card")
+        row = row.contiguous()
+    if lines is not None:
+        check_input(cache_rows.is_contiguous(), "cache_rows must be contiguous")
+        lines = lines.to(torch.int32).contiguous()
+    ptrs = [table.data_ptr(), grads.data_ptr()] + [s.data_ptr() for s in state] + (
+        [cache_rows.data_ptr()] if lines is not None else [])
+    tensors = [table, grads] + state + ([cache_rows] if lines is not None else [])
+    vec = 4 if D % 4 == 0 and all(p % (4 * t.element_size()) == 0
+                                  for p, t in zip(ptrs, tensors)) else 1
+    tile = apply_tile(D * 4, APPLY_HOST_TILE_BYTES)
+    check_input(tile * (D // vec) < 2**31, "a tile of rows must hold fewer than 2^31 vectors")
+    where = [_address(t) for t in [table] + state] + [(None, 0)] * (2 - len(state))
+    SPARSE_APPLY_HOST(code, *where[0], _ELEMENT[table.dtype], *where[1], *where[2],
+                      ids.data_ptr(), int(ids.dtype == torch.int64), grads.data_ptr(),
+                      None if lines is None else lines.data_ptr(),
+                      None if lines is None else cache_rows.data_ptr(),
+                      table.shape[0], R, D, vec, tile, *floats,
+                      None if row is None else row.data_ptr(), kernels.cuda_stream(ids.device))
+    return None
+
+
+__all__ = ["SPARSE_APPLY", "SPARSE_APPLY_HOST", "APPLY_TILE_BYTES", "APPLY_HOST_TILE_BYTES",
+           "APPLY_MAX_TILE", "apply_tile", "apply_route", "kernel_params", "apply_rows",
+           "apply_rows_plain", "apply_rows_host", "apply_rows_host_plain", "OPT_SGD", "OPT_ADAM",
            "OPT_ADAMW", "OPT_RMSPROP", "OPT_ADAGRAD"]

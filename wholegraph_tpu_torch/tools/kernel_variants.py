@@ -85,8 +85,18 @@ probe's, and its output is not kept.
   (row, vector) items in flight a thread (2 as built), at most 40
   registers (6 CTAs an SM), streaming stores; a probe that reads its ids
   and finds none valid; beside each call's bound, by device time alone,
-  each kernel's registers beside them. ``--parts`` limits the run to some
-  of A, B, D, G, J, K and L.
+  each kernel's registers beside them. L's host route at the host-tier
+  SAGE step's apply call (``SageTrainConfig()`` with
+  ``host_cache_ratio=0.25``: the table, m and v pinned, the slots
+  ascending) over tiles of 2-128 KB (``APPLY_HOST_TILE_BYTES``), 1, 4 and
+  8 items in flight a thread (2 as built, ``APPLY_ITEMS``), with tiles
+  of 4 and 8 KB too, the variants above, and three probes that take one direction off the link
+  (reads only, the writes skipped; writes only, zeros in place of the host
+  reads; the table's reads alone), which show how far the route overlaps
+  its reads and writes;
+  beside the composed route (E, the update, F, B) and the bounds of both
+  directions at once and one after the other, by device time.
+  ``--parts`` limits the run to some of A, B, D, G, J, K and L.
 
 Every function is timed in turns, three rounds, by CUDA events (the median)
 and once as device time from a CUDA graph of 20 calls. Prints one JSON
@@ -373,6 +383,16 @@ _L_ITEMS = "constexpr int APPLY_ITEMS = 2;"
 _L_BOUNDS = "__global__ void __launch_bounds__(APPLY_THREADS)\nsparse_apply_kernel("
 _L_VALID = "ball[c] = __ballot_sync(0xffffffffu, id[c] >= 0 && id[c] < n_rows);"
 L_TILE_BYTES = (8192, 16384, 32768, 65536, 131072)  # APPLY_TILE_BYTES tried
+_L_U = "  constexpr int U = APPLY_ITEMS;"
+_L_HOST_LOADS = """        load_vec<TE, N, false>(table, off[u], p[u]);
+        if constexpr (NS >= 1) load_vec<E_F32, N, false>(sa, off[u], a[u]);
+        if constexpr (NS >= 2) load_vec<E_F32, N, false>(sb, off[u], b[u]);
+"""
+_L_HOST_STORE = "      store_vec<TE, N>(table, off[u], p[u]);\n"
+_L_HOST_STATE = """        if constexpr (NS >= 1) load_vec<E_F32, N, false>(sa, off[u], a[u]);
+        if constexpr (NS >= 2) load_vec<E_F32, N, false>(sb, off[u], b[u]);
+"""
+L_HOST_TILE_BYTES = (2048, 4096, 8192, 16384, 32768, 65536, 131072)  # APPLY_HOST_TILE_BYTES tried
 
 
 def l_variants(src: str) -> tuple:
@@ -394,6 +414,19 @@ def l_variants(src: str) -> tuple:
             "*p = narrow<E>(x[0]);", "__stcs(p, narrow<E>(x[0]));"),
         "probe: L reads its ids, no row": lambda: _sub(
             src, _L_VALID, _L_VALID.replace("id[c] < n_rows", "id[c] < -n_rows")),
+        **{f"L host {k} item{'s' if k > 1 else ''} in flight a thread": (
+            lambda k=k: _sub(src, _L_U, f"  constexpr int U = HOST ? {k} : APPLY_ITEMS;"))
+           for k in (1, 4, 8)},
+        "probe: L host reads only": lambda: _sub(
+            src, _L_HOST_STORE, "      if (HOST && p[u][0] != 12345.0f) continue;\n"
+            + _L_HOST_STORE),
+        "probe: L host reads the table only": lambda: _sub(_sub(
+            src, _L_HOST_STORE, "      if (HOST && p[u][0] != 12345.0f) continue;\n"
+            + _L_HOST_STORE), _L_HOST_STATE, _L_HOST_STATE.replace("(NS >= ", "(!HOST && NS >= ")),
+        "probe: L host writes only": lambda: _sub(
+            src, _L_HOST_LOADS, "        if constexpr (HOST) {\n#pragma unroll\n"
+            "          for (int e = 0; e < N; ++e) p[u][e] = 0.0f;\n        } else {\n"
+            + _L_HOST_LOADS + "        }\n"),
     })
 
 
@@ -661,6 +694,100 @@ def k_register_variants(src: str) -> tuple:
         "probe: K no neighbour shuffle (neighbour -1)": lambda: _sub(
             src, _K_NBR, "    const int32_t nbr = -1;\n"),
     })
+
+
+def l_host_section(libs: dict, names, gen) -> dict:
+    """L's host route at the host-tier SAGE step's apply call, as built,
+    over host tile sizes, and under each L variant and host probe, in turns
+    by device time (a CUDA graph of 5 calls), beside the composed route (E
+    on the table, m and v, the update, F on each, B on the lines) and the
+    bounds of both link directions at once and one after the other. Every
+    output but a probe's is held bit-equal to L's host route as built (the
+    card tests hold that to the composed route), each from the rows as they
+    were before the call; the touched rows are restored at the end."""
+    from ..embedding import host_embedding as host_mod
+    from ..ops import optim_kernels as OK
+    from ..ops.gather_kernels import scatter_rows
+    from ..ops.host_kernels import host_scatter_rows
+    from ..train import SageTrainConfig, build_synthetic, train_step
+
+    st = build_synthetic(SageTrainConfig(), device="cuda", seed=0, host_cache_ratio=0.25)
+    rec = []
+    real = host_mod.apply_rows_host
+    host_mod.apply_rows_host = lambda *a, **kw: rec.append((a, kw)) or real(*a, **kw)
+    try:
+        c = torch.randint(0, st.config.n_nodes, (st.config.batch,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        train_step(st, c, st.labels[c.long()], seed=0)
+    finally:
+        host_mod.apply_rows_host = real
+    (table, slots, ids, grads, opt, step, lr), kw = rec[0]
+    torch.cuda.synchronize()
+    valid = (ids >= 0) & (ids < table.shape[0])
+    vids, hits = ids[valid].long().cpu(), kw["lines"][valid & (kw["lines"] >= 0)].long()
+
+    def rows():
+        torch.cuda.synchronize()
+        return [table[vids], kw["cache_rows"][hits]] + [v[vids] for v in slots.values()]
+
+    def restore(saved):
+        torch.cuda.synchronize()
+        table[vids], kw["cache_rows"][hits] = saved[0], saved[1]
+        for v, r in zip(slots.values(), saved[2:]):
+            v[vids] = r
+
+    def call(lib=None, tb=None):
+        def run():
+            saved = OK.APPLY_HOST_TILE_BYTES
+            OK.APPLY_HOST_TILE_BYTES = tb or saved
+            try:
+                if lib is None:
+                    return OK.apply_rows_host(table, slots, ids, grads, opt, step, lr, **kw)
+                with launching(OK.SPARSE_APPLY_HOST, lib):
+                    return OK.apply_rows_host(table, slots, ids, grads, opt, step, lr, **kw)
+            finally:
+                OK.APPLY_HOST_TILE_BYTES = saved
+        return run
+
+    def composed():
+        OK._composed_host(OK._host_take, host_scatter_rows, scatter_rows, table, slots, ids,
+                          grads, opt, step, lr, kw["lines"], kw["cache_rows"])
+
+    before = rows()
+    restore(before)
+    call()()
+    ref = rows()
+    items = [n for n in names if n.startswith("L host ") and " item" in n]
+    variants = {"L host": (None, None),
+                **{f"L host tiles of {tb // 1024} KB": (None, tb) for tb in L_HOST_TILE_BYTES},
+                **{name: (libs[name], None) for name in names},
+                **{f"{name}, tiles of {tb // 1024} KB": (libs[name], tb) for name in items
+                   for tb in (4096, 8192)}}
+    for name, v in variants.items():
+        if name.startswith("probe"):
+            continue
+        restore(before)
+        call(*v)()
+        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(rows(), ref)):
+            raise SystemExit(f"kernel_variants: {name} differs from L's host route")
+    fns = {"composed (E x3, update, F x3, B)": composed,
+           **{name: call(*v) for name, v in variants.items()}}
+    rounds = {k: [] for k in fns}
+    for _ in range(3):
+        for k, fn in fns.items():
+            rounds[k].append(graph_ms(fn, 5))
+    restore(ref)
+    n_valid = vids.numel()
+    link = n_valid * table.shape[1] * (table.element_size() + 4 * len(slots))
+    out = {"slots": ids.numel(), "valid": n_valid, "cached": hits.numel(),
+           "link_bytes_each_way": link, "duplex_bound_ms": link / 64e9 * 1e3,
+           "in_turn_bound_ms": 2 * link / 64e9 * 1e3,
+           "tile": OK.apply_tile(table.shape[1] * 4, OK.APPLY_HOST_TILE_BYTES),
+           **{k: {"device_ms": statistics.median(v), "spread": max(v) - min(v)}
+              for k, v in rounds.items()}}
+    del st, table, slots, ids, grads, kw, before, ref
+    return out
 
 
 def ptxas(log: str, match: str) -> dict:
@@ -1381,7 +1508,9 @@ def main(argv=None) -> int:
     if "L" in args.parts:
         out["ptxas"].update({"L": ptxas(built_log("sparse_apply.cu"), "sparse_apply"),
                              **{name: ptxas(logs[name], "sparse_apply") for name in lv}})
-        out["L"] = l_section(libs, list(lv), gen)
+        out["L"] = l_section(libs, [n for n in lv if " host " not in n], gen)
+        torch.cuda.empty_cache()
+        out["L host"] = l_host_section(libs, list(lv), gen)
         torch.cuda.empty_cache()
 
     if "J" in args.parts:
