@@ -169,7 +169,10 @@ the examples under the launcher and the multichip dry run. In order:
    ``index_select`` into pinned staging and a copy; a span ``copy_`` and a
    take on the card);
 11. the host-tier path: ``SageTrainConfig()`` with ``cache_ratio=0.25`` and
-   the top-degree rows cached; one captured step (A on the hits, C twice, D
+   the top-degree rows cached, the table, m and v each in a pinned, mapped
+   allocation of its bytes (``ops.host_kernels.host_zeros``: the row stride
+   and rounding printed, with the pinned bytes that the kernels' library
+   and PyTorch's caching host allocator hold); one captured step (A on the hits, C twice, D
    twice, E on the misses, kernel L's host route once for the apply; no F,
    no B) whose apply call is replayed from the rows it touched as they were
    before it (the table's, m's, v's and the cache lines', restored in place,
@@ -178,7 +181,8 @@ the examples under the launcher and the multichip dry run. In order:
    cache lines) and to the step's own result, under LazyAdam and the
    registry's other optimizers (APPLY_OTHER_OPTIMIZERS); both routes timed
    by device time (``measure_chain``) beside the apply's two bounds over
-   the link, both directions at once and one after the other; E's calls
+   the link, both directions at once and one after the other, and the
+   ``[link]`` rates; E's calls
    (the step's and the composed route's, with the link bytes E read) and
    F's (by its written rows and a sample of untouched rows), A's and B's
    held against their plain versions; then HOST_COMPOSED_STEPS steps under
@@ -533,14 +537,18 @@ def free_pinned():
 
 
 def pinned_bytes(tensors):
-    """(bytes the tensors asked for, the caching host allocator's own count
-    of the pinned bytes it holds -- ``allocated_bytes.current`` of
+    """(bytes of the distinct allocations under the tensors, the pinned
+    bytes the kernels' library holds -- ``ops.host_kernels.
+    host_alloc_bytes()``, the host tier's allocations -- plus the
+    caching host allocator's own count -- ``allocated_bytes.current`` of
     ``torch.cuda.host_memory_stats()``, active and cached blocks at their
-    rounded sizes -- or None where this PyTorch lacks that count)."""
-    asked = sum(t.untyped_storage().nbytes() for t in tensors)
+    rounded sizes, 0 where this PyTorch lacks that count)."""
+    asked = sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                 for t in tensors}.values())
     fn = getattr(torch.cuda, "host_memory_stats", None)
-    held = fn().get("allocated_bytes.current") if fn is not None else None
-    return asked, held
+    cached = (fn().get("allocated_bytes.current") or 0) if fn is not None else 0
+    lib = getattr(H, "host_alloc_bytes", None)  # an older tree pins through PyTorch alone
+    return asked, (lib()["current"] if lib is not None else 0) + cached
 
 
 # ---------------------------------------------------------------------------
@@ -1559,7 +1567,8 @@ def host_gather_phase(link):
     torch.cuda.synchronize()
     asked, held = pinned_bytes([emb.host_table])
     log(f"[host_gather] [{n}, {dim}] f32 pinned table in {time.perf_counter() - t0:.2f} s: "
-        f"{asked} bytes asked; the caching host allocator holds {held} pinned bytes")
+        f"{asked} bytes in its allocation; pinned bytes held {held} (the kernels' library's "
+        f"and the caching host allocator's)")
     span = int(batch * 1.25)
     base = int(torch.randint(0, n - span, (1,), generator=gen, device="cuda"))
     regimes = {
@@ -1855,11 +1864,23 @@ def check_host_apply(c, link):
         f"{t['host_over_composed']}; bounds {t['duplex_bound_ms']} ms both directions at once "
         f"(share {t['bound_share']}), {t['in_turn_bound_ms']} ms one after the other (host "
         f"{t['in_turn_share']}, composed {t['composed_in_turn_share']}); the same bytes at the "
-        f"[link] duplex copy_ rate {t['duplex_copy_ms']} ms; CUDA events {t['ms']} (composed "
-        f"{t['composed_ms']}); plain version {t['plain_ms']} ms")
+        f"[link] duplex copy_ rate {t['duplex_copy_ms']} ms ([link] copy_ {link['h2d_GBps']} "
+        f"GB/s pinned->card, {link['d2h_GBps']} card->pinned, {link['duplex_GBps']} both at "
+        f"once); CUDA events {t['ms']} (composed {t['composed_ms']}); plain version "
+        f"{t['plain_ms']} ms")
     log(f"[host_tier] sparse_apply_host bit-equal to the composed route and to the step at "
         f"{len(errs)} settings: " + "; ".join(e["setting"] for e in errs))
     return errs, t, record
+
+
+def host_tier_layout(emb):
+    """The host tier's memory as ``HostEmbedding`` holds it: its tables' row
+    stride and how each was allocated."""
+    st = emb.host_table.stride(0) * emb.host_table.element_size()
+    if not hasattr(H, "host_zeros"):  # an older tree: a pinned tensor of PyTorch's each
+        return f"a pinned tensor each, table row stride {st} bytes"
+    return (f"a cudaHostAlloc allocation of the kernels' library each, table row stride {st} "
+            f"bytes, each request rounded up to a multiple of {H.HOST_ROUND} bytes")
 
 
 class ComposedLazyAdam(LazyAdam):
@@ -1877,9 +1898,11 @@ def host_tier_phase(cfg, link):
     emb = state.embedding
     host_tensors = [emb.host_table, *emb.host_slots.values()]
     asked, held = pinned_bytes(host_tensors)
+    layout = host_tier_layout(emb)
     log(f"[host_tier] state built in {time.perf_counter() - t0:.2f} s: {emb.hot_cap} cache "
-        f"lines ({emb.cache_rows.nbytes} bytes on the card), pinned {asked} bytes asked; the "
-        f"caching host allocator holds {held} pinned bytes")
+        f"lines ({emb.cache_rows.nbytes} bytes on the card); the table, m and v in "
+        f"{len(host_tensors)} pinned, mapped allocations of {asked} bytes in all ({layout}); "
+        f"pinned bytes held {held} (the kernels' library's and the caching host allocator's)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
 
@@ -1967,9 +1990,10 @@ def host_tier_phase(cfg, link):
             f"{launches}")
     require(bool(torch.isfinite(emb.gather(c)).all()), "non-finite host-tier rows")
     require(coherent(emb), "host tier: the cache lost coherence over the timed steps")
-    log(f"[host_tier] pinned {asked} bytes asked ({held} held); cache hit fraction {hit}; "
-        f"link h2d {link['h2d_GBps']} GB/s, d2h {link['d2h_GBps']} GB/s, both at once "
-        f"{link['duplex_GBps']} GB/s")
+    log(f"[host_tier] pinned {asked} bytes asked ({layout}; {held} held); "
+        f"cache hit fraction {hit}; link h2d {link['h2d_GBps']} GB/s, d2h {link['d2h_GBps']} "
+        f"GB/s, both at once {link['duplex_GBps']} GB/s")
+    l_time.update(pinned_bytes=asked, pinned_held=held, layout=layout)
     del state, emb, host_tensors
     free_pinned()
     return errs, times, launches, composed_launches, l_time
@@ -2303,9 +2327,11 @@ def paired_times(parts=PAIRED_PARTS):
     * ``host_apply``: the host tier at ``SageTrainConfig()``
       (``host_cache_ratio`` HOST_CACHE_RATIO): one step's whole
       ``HostEmbedding.apply_gradients`` (its dedup and the apply's link
-      work) by device time (``measure_chain`` of HOST_APPLY_ITERS calls,
-      twice), then HOST_STEPS eager host-tier steps (stage split, busy
-      share);
+      work), its call of ``apply_rows_host`` (kernel L's host route) beside
+      the call's link bounds, and the step's gather of the misses (kernel
+      E), each by device time (``measure_chain`` of HOST_APPLY_ITERS calls,
+      twice), the pinned bytes and the tier's layout, then HOST_STEPS eager
+      host-tier steps (stage split, busy share);
     * ``weighted`` (named only; trees before weighted sampling lack it):
       PAIRED_STEPS uniform and weighted device-memory steps in turns
       (uniform, weighted, weighted, uniform) on the same graph, table and
@@ -2387,22 +2413,36 @@ def paired_times(parts=PAIRED_PARTS):
     if "host_apply" in parts:
         hstate = wt.build_synthetic(cfg, device=dev, seed=0, host_cache_ratio=HOST_CACHE_RATIO)
         emb = hstate.embedding
-        rec = []
+        asked, held = pinned_bytes([emb.host_table, *emb.host_slots.values()])
+        rec, e_calls, l_calls = [], [], []
         real = emb.apply_gradients
         emb.apply_gradients = lambda *a, **kw: rec.append((a, kw)) or real(*a, **kw)
-        float(wt.train_step(hstate, *batcher(hstate)(), seed=0))
+        with capture_kw(host_mod, "host_gather_rows", e_calls), capture_host_apply(l_calls):
+            float(wt.train_step(hstate, *batcher(hstate)(), seed=0))
         del emb.apply_gradients
         a, kw = rec[0]
-        whole = [measure_chain(lambda i: emb.apply_gradients(*a, **kw), HOST_APPLY_ITERS) * 1e3
-                 for _ in range(2)]
+        (et, es), ekw = e_calls[0]  # the gather's misses
+        c = l_calls[0]  # the apply's call of L's host route
+        whole, gather, call = [], [], []
+        for _ in range(2):
+            whole.append(measure_chain(lambda i: emb.apply_gradients(*a, **kw),
+                                       HOST_APPLY_ITERS) * 1e3)
+            call.append(measure_chain(lambda i: host_apply_fused(c), HOST_APPLY_ITERS) * 1e3)
+            gather.append(measure_chain(lambda i: H.host_gather_rows(et, es, **ekw),
+                                        HOST_APPLY_ITERS) * 1e3)
         out["host_apply"] = {"whole_apply_device_ms": whole, "rows": a[0].numel(),
-                             "valid": int(kw["mask"].sum()) if "mask" in kw else None}
+                             "valid": int(kw["mask"].sum()) if "mask" in kw else None,
+                             "apply_call_device_ms": call, "apply_call_valid": c["vids"].numel(),
+                             **host_apply_bounds(c), "miss_gather_device_ms": gather,
+                             "miss_gather_rows": int(((es >= 0) & (es < et.shape[0])).sum()),
+                             "pinned_bytes": asked, "pinned_held": held,
+                             "layout": host_tier_layout(emb)}
         out["host_apply_step"], _, _ = timed_steps("paired host_apply", hstate, batcher(hstate),
                                                    HOST_STEPS, 5)
         log("[host_apply] host-tier step: " + json.dumps(
             {**out["host_apply"], **{k: out["host_apply_step"][k] for k in (
                 "step_median_ms", "step_p90_ms", "stage_medians_ms", "busy_share")}}))
-        del hstate, emb, rec, a, kw
+        del hstate, emb, rec, a, kw, e_calls, l_calls, c, et, es
         free_pinned()
     if "agg" in parts:
         calls, out["agg_backward"] = agg_calls(gen)
@@ -5696,7 +5736,7 @@ def wt_host_part(rank, mesh, cfg, centers, ids, total):
                             mesh=mesh)
     emb = st.embedding
     asked, held = pinned_bytes([emb.host_table, *emb.host_slots.values()])
-    out["pinned_asked"], out["pinned_held"] = asked, held
+    out["pinned_asked"], out["pinned_held"] = asked, held  # the held count is the process's
     calls = {k: [] for k in "AEL"}
     marks = {}
 

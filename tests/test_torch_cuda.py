@@ -20,6 +20,7 @@ weighted_near_ties``: two keys within 4 ulps near its cut, where ``logf``
 on the card and the plain version's ``log`` may order them apart)."""
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -2339,17 +2340,38 @@ def _host_case(opt, dtype, D, kind, seed=0):
     return table, slots, ids, grads, lines, cache_rows
 
 
+def _tier_at(dev, table, slots, names, offset=0):
+    """Copies of ``table`` and its ``slots`` (``names``' order) as the host
+    tier holds them, each in an allocation of its own from the kernels'
+    library (``H.host_zeros``), ``offset`` rows into it, every other byte 7:
+    ``([allocation of the table, then of each slot], table view, {slot:
+    view})``."""
+    mems, views = [], []
+    for t in [table] + [slots[k] for k in names]:
+        mem = H.host_zeros((t.shape[0] + offset, t.shape[1]), t.dtype, torch.device(dev))
+        assert mem.is_pinned() and mem.untyped_storage().nbytes() == mem.nbytes
+        mem.view(torch.uint8).fill_(7)
+        mem[offset:].copy_(t)
+        mems.append(mem)
+        views.append(mem[offset:])
+    return mems, views[0], dict(zip(names, views[1:]))
+
+
 def _host_both(dev, opt, table, slots, ids, grads, lines, cache_rows, step=APPLY_STEP,
-               offset=0):
+               offset=0, tier=False):
     """Kernel L's host route and the composed route, each on its own pinned
-    copies of a case (the table ``offset`` rows into a larger allocation):
-    the table, slots and cache after each, and the launches of L's host
-    route, E, F and B."""
+    copies of a case (the table ``offset`` rows into a larger allocation;
+    with ``tier``, the table and slots as the host tier allocates them,
+    :func:`_tier_at`): the table, slots and cache after each, and
+    the launches of L's host route, E, F and B."""
     outs = []
     kerns = (L.SPARSE_APPLY_HOST, H.HOST_GATHER, H.HOST_SCATTER, G.ROW_SCATTER)
     for route in ("host", "composed"):
-        t = _pinned_at(table, offset)
-        s = {k: _pinned(v) for k, v in slots.items()}
+        if tier:
+            _, t, s = _tier_at(dev, table, slots, opt.slot_names, offset)
+        else:
+            t = _pinned_at(table, offset)
+            s = {k: _pinned(v) for k, v in slots.items()}
         c = cache_rows.to(dev)
         args = (t, s, ids.to(dev), grads.to(dev), opt, step, APPLY_LR)
         before = [k.launches for k in kerns]
@@ -2480,3 +2502,107 @@ def test_sparse_apply_host_refuses_memory_that_is_not_pinned(dev):
     L.apply_rows_host_plain(t2, {}, ids, grads, sgd, 1, 0.5, lines=lines, cache_rows=c2)
     torch.cuda.synchronize()
     assert same_bits(t1, t2) and same_bits(c1.cpu(), c2)
+
+
+# -- the twenty-first slice: the host tier's tables in allocations of their own
+
+
+@pytest.mark.parametrize("name", ["lazy_adam", "adam_w", "rms_prop", "sgd_wd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_sparse_apply_host_over_the_tier_memory(dev, name, dtype):
+    """The table and its state tables 5 rows into allocations of the host
+    tier's own (``H.host_zeros``): the host route's bits equal the composed
+    route's, and every byte of each allocation outside the touched rows is
+    untouched."""
+    opt = APPLY_OPTS[name]
+    table, slots, ids, grads, lines, cache_rows = _host_case(opt, dtype, 64, "mixed", seed=9)
+    got, ref = _host_both(dev, opt, table, slots, ids, grads, lines, cache_rows, offset=5,
+                          tier=True)
+    _host_checks(got, ref, table, ids, lines, cache_rows)
+    assert got[3][0] == 1
+    mems, t, s = _tier_at(dev, table, slots, opt.slot_names, 5)
+    L.apply_rows_host(t, s, ids.to(dev), grads.to(dev), opt, APPLY_STEP, APPLY_LR)
+    torch.cuda.synchronize()
+    want, _, _ = _tier_at(dev, got[0], got[1], opt.slot_names, 5)
+    assert all(same_bits(m, w) for m, w in zip(mems, want))  # 7 in every other byte
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [256, 100, 3])
+def test_host_rows_over_the_tier_memory(dev, D, dtype):
+    """E reads a table of the tier's own allocation and F writes it: each
+    against its plain version over the same table, and F leaves the rows
+    before the table and every other allocation alone."""
+    names = ("m", "v")
+    table = torch.randn(500, D, generator=_gen(40)).to(dtype)
+    slots = {k: torch.randn(500, D, generator=_gen(41 + i)) for i, k in enumerate(names)}
+    mems, t, s = _tier_at(dev, table, slots, names, 2)
+    for case in ("uniform", "duplicates", "ascending"):
+        ids = _host_slots(case, torch.int64)
+        stats = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = H.host_gather_rows(t, ids.to(dev), _sort=case != "ascending", _stats=stats)
+        assert torch.equal(out.cpu(), H.host_gather_rows_plain(t, ids))
+        valid = ids[(ids >= 0) & (ids < 500)]
+        assert stats.item() == torch.unique(valid).numel() * D * table.element_size()
+    wslots = torch.randperm(500, generator=_gen(44))[:300].to(torch.int32)
+    wslots[::7] = -1
+    rows = torch.randn(300, D, generator=_gen(45)).to(dtype)
+    before = H.HOST_SCATTER.launches
+    H.host_scatter_rows(t, wslots.to(dev), rows.to(dev))
+    assert H.HOST_SCATTER.launches == before + 1
+    torch.cuda.synchronize()
+    want_t = H.host_scatter_rows_plain(table.clone(), wslots, rows)
+    want, _, _ = _tier_at(dev, want_t, slots, names, 2)
+    assert all(same_bits(m, w) for m, w in zip(mems, want))
+
+
+def test_host_embedding_holds_exact_allocations(dev):
+    """A LazyAdam host tier holds its table, m and v each in a pinned,
+    mapped allocation of its own: a tensor of exactly rows x 1 KB, its
+    request rounded up to HOST_ROUND, counted by ``host_alloc_bytes`` and
+    freed with the embedding."""
+    gc.collect()
+    before = H.host_alloc_bytes()
+    emb = HostEmbedding.create(10_000, 256, optimizer=LazyAdam(), cache_ratio=0.01, device=dev)
+    tables = [emb.host_table, *emb.host_slots.values()]
+    nbytes = 10_000 * 1024
+    for v in tables:
+        assert v.is_pinned() and v.nbytes == nbytes and v.untyped_storage().nbytes() == nbytes
+    assert len({v.untyped_storage().data_ptr() for v in tables}) == 3
+    now = H.host_alloc_bytes()
+    assert now["current"] - before["current"] == 3 * (-(-nbytes // H.HOST_ROUND) * H.HOST_ROUND)
+    assert now["allocations"] == before["allocations"] + 3
+    emb.init(torch.Generator(device=dev).manual_seed(1), hot_ids=np.arange(0, 10_000, 97))
+    ids = torch.randint(0, 10_000, (4096,), generator=torch.Generator(device=dev).manual_seed(2),
+                        device=dev)
+    rows = emb.gather(ids)
+    assert torch.equal(rows.cpu(), emb.host_table[ids.cpu()])
+    del emb, rows, v, tables
+    gc.collect()
+    assert H.host_alloc_bytes()["current"] == before["current"]
+
+
+def test_host_embedding_dropped_during_a_capture(dev):
+    """A host tier whose last reference dies while a CUDA graph is being
+    captured is not freed then (the free synchronizes the device, which
+    would invalidate the capture): the capture completes and replays, and
+    the memory is freed once the capture has ended."""
+    gc.collect()
+    before = H.host_alloc_bytes()["current"]
+    emb = HostEmbedding.create(1000, 64, optimizer=LazyAdam(), cache_ratio=0.1, device=dev)
+    held = H.host_alloc_bytes()["current"]
+    assert held > before
+    x = torch.ones(1024, device=dev)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = x * 2
+        del emb
+        gc.collect()
+        y += 1
+    assert H.host_alloc_bytes()["current"] == held  # waits for the capture's end
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(x, 3))
+    H.release_deferred_host_memory()
+    assert H.host_alloc_bytes()["current"] == before

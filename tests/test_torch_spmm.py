@@ -63,6 +63,28 @@ def test_neighbor_reduce_wrapper_is_plain_on_cpu(mean):
     np.testing.assert_allclose(out.numpy(), ref, **FWD)
 
 
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_grad_of_valid_ids_outside_range_follows_padded_reduce_r14(reduce):
+    """Valid slots whose ids lie outside ``[0, U)`` (8 and -1 at U = 6) send
+    their gradient to the clipped row, as JAX's ``padded_reduce`` does
+    (``_fps_bwd`` would drop 8 and send -1 to row 5: quirk R14)."""
+    rs = np.random.RandomState(7)
+    x = rs.randn(6, 4).astype(np.float32)
+    nbr = np.array([[0, 1, 2, 8], [-1, 1, 8, 0]], np.int32)
+    mask = np.ones(nbr.shape, bool)
+    ct = rs.randn(2, 4).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: js.padded_reduce(v, jnp.asarray(nbr), jnp.asarray(mask), reduce),
+                     jnp.asarray(x))
+    (jdx,) = vjp(jnp.asarray(ct))
+    tx = torch.from_numpy(x).requires_grad_()
+    ts.padded_reduce(tx, torch.from_numpy(nbr), torch.from_numpy(mask), reduce).backward(
+        torch.from_numpy(ct))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), **GRAD)
+    touched = (np.abs(tx.grad.numpy()).sum(1) > 0).astype(int)
+    np.testing.assert_array_equal(touched, [1, 1, 1, 0, 0, 1])
+    np.testing.assert_array_equal(touched, (np.abs(np.asarray(jdx)).sum(1) > 0).astype(int))
+
+
 def test_neighbor_reduce_grad_ignores_non_finite_masked_cotangent():
     """A masked slot contributes nothing to dx, even against an inf row."""
     x, nbr, mask, ct = _block(2)

@@ -61,9 +61,18 @@
 // address with cudaHostGetDevicePointer (host_address.cuh, never assuming the
 // two are equal) and returns that call's error when the memory is not pinned
 // and mapped.
+//
+// Memory (wg_host_alloc, wg_host_free): the host tier (HostEmbedding) takes
+// its table and each optimizer state table as a page-locked, mapped
+// allocation of cudaHostAlloc, zeroed here by several host threads, in place
+// of PyTorch's pinned blocks, which round each tensor up to a power of two.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <thread>
+#include <vector>
 
 #include "host_address.cuh"
 #include "row_scatter.cuh"
@@ -205,6 +214,18 @@ bool bad_args(int64_t n_rows, int64_t n_slots, int64_t row_bytes, int vec_bytes)
          row_bytes % vec_bytes;
 }
 
+// Zero `bytes` at `p` in `threads` threads.
+void zero_bytes(void* p, int64_t bytes, int threads) {
+  std::vector<std::thread> pool;
+  const int64_t chunk = (bytes + threads - 1) / threads;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([=] {
+      const int64_t lo = t * chunk, hi = lo + chunk < bytes ? lo + chunk : bytes;
+      if (lo < hi) memset(static_cast<char*>(p) + lo, 0, size_t(hi - lo));
+    });
+  for (auto& th : pool) th.join();
+}
+
 }  // namespace
 
 // slots: sorted (invalid ones anywhere), with pos[i] the output row of
@@ -246,6 +267,30 @@ extern "C" int wg_host_scatter(const void* host_base, int64_t host_offset, const
   if (e != cudaSuccess) return int(e);
   return int(wg::warp_row_scatter(host, slots, slots64, rows, n_rows, n_slots, row_bytes,
                                   vec_bytes, static_cast<cudaStream_t>(stream)));
+}
+
+// `bytes` of zeroed, page-locked host memory, mapped into the card's address
+// space (cudaHostAlloc, default flags: mapped and portable under unified
+// addressing), in *ptr; a CUDA error code, with *ptr null, on failure.
+extern "C" int wg_host_alloc(int64_t bytes, int threads, void** ptr) {
+  *ptr = nullptr;
+  if (bytes <= 0 || threads <= 0) return int(cudaErrorInvalidValue);
+  const cudaError_t e = cudaHostAlloc(ptr, size_t(bytes), cudaHostAllocDefault);
+  if (e != cudaSuccess) {
+    *ptr = nullptr;
+    cudaGetLastError();
+    return int(e);
+  }
+  zero_bytes(*ptr, bytes, threads);
+  return 0;
+}
+
+// Frees what wg_host_alloc gave, after the card's work that may read it is
+// done. The caller must not call it while a stream is being captured.
+extern "C" int wg_host_free(void* ptr) {
+  const cudaError_t e = cudaDeviceSynchronize();
+  if (e != cudaSuccess) return int(e);
+  return int(cudaFreeHost(ptr));
 }
 
 extern "C" const char* wg_error_string(int err) {

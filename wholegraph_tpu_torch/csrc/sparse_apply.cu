@@ -86,6 +86,15 @@
 // APPLY_HOST_TILE_BYTES (8 KB, ops.optim_kernels) keep fewer rows in flight,
 // nearer one another in the table.
 //
+// Memory: HostEmbedding keeps the table and each state table in an
+// allocation of its own from the kernels' library (ops.host_kernels.
+// host_zeros). One record a row (a row's table, m and v side by side, 3 KB
+// at LazyAdam's 1 KB parts) read no faster by lane loads than three 1 KB
+// runs from three tables (tools/host_read_probe.py --parts records:
+// 0.92-1.08x on one machine), and one allocation for the three tables read
+// slower than one a table (--parts tier), so the route reads three tables
+// as before.
+//
 // Measured on an H100 (tools/kernel_variants.py --parts L, device time of a
 // CUDA graph of 5 calls, at the host-tier SAGE step's apply call: 144,846
 // valid rows of 1 KB, 445 MB each way; two calls): 19.3-19.9 ms against the

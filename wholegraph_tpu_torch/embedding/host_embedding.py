@@ -6,9 +6,12 @@ the table and one f32 tensor per optimizer state slot live in pinned host
 memory, and the card keeps a cache of hot rows.
 
 - ``host_table`` [rows, D] and ``host_slots`` [rows, D] f32 are CPU tensors
-  in page-locked, mapped memory (:func:`~..ops.host_kernels.pinned_empty`);
-  the card reads their rows over PCIe with kernel E (the gather) and reads,
-  updates and writes them back with kernel L's host route (the apply).
+  in page-locked, mapped memory, each in an allocation of its own bytes (the
+  request rounded up to 2 MiB) from the kernels' library
+  (:func:`~..ops.host_kernels.host_zeros`), freed with the embedding (on
+  the CPU ordinary memory); the card reads their rows over PCIe with kernel
+  E (the gather) and reads, updates and writes them back with kernel L's
+  host route (the apply).
 - ``cache_map`` [rows] int32 on the card maps a row's slot to its cache
   line or -1; ``cache_rows`` [hot_cap, D] on the card holds the cached
   rows. The hot set is static between :meth:`HostEmbedding.rebuild_cache`
@@ -55,7 +58,7 @@ from ..memory import PartitionPlan, ShardedTable
 from ..memory.sharded_table import default_plan, local_rows
 from ..ops.gather import EXCHANGE_STATS, _bucket_cap, _in_range, gather_exact_loop
 from ..ops.gather_kernels import gather_rows
-from ..ops.host_kernels import host_gather_rows, pinned_empty
+from ..ops.host_kernels import host_gather_rows, host_zeros
 from ..ops.optim_kernels import apply_rows_host
 from ..parallel.mesh import Mesh
 from ..utils.device import DeviceLike, resolve_device
@@ -90,13 +93,9 @@ class HostEmbedding:
         rows = self.plan.capacity
         self.hot_cap = max(int(rows * cache_ratio), 1)
 
-        def host(dt):
-            shape = (rows, self.dim)
-            t = pinned_empty(shape, dt) if device.type == "cuda" else torch.empty(shape, dtype=dt)
-            return t.zero_()
-
-        self.host_table = host(dtype)
-        self.host_slots: Dict[str, torch.Tensor] = {s: host(torch.float32)
+        shape = (rows, self.dim)
+        self.host_table = host_zeros(shape, dtype, device)
+        self.host_slots: Dict[str, torch.Tensor] = {s: host_zeros(shape, torch.float32, device)
                                                     for s in optimizer.slot_names}
         self.cache_map = torch.full((rows,), -1, dtype=torch.int32, device=device)
         self.cache_rows = torch.zeros((self.hot_cap, self.dim), dtype=dtype, device=device)

@@ -11,6 +11,10 @@ TPU's flat-memref contract, its 4 KB host pages and its ring plan
 (``:1337-1377``, ``:1471-1499``) E keeps the sort (:func:`host_gather_plan`):
 it reads the distinct rows once each, in address order.
 
+The host tier (``HostEmbedding``) keeps its table and each optimizer state
+table in an allocation of its own size from the kernels' library
+(:func:`host_zeros`), not in PyTorch's power-of-two pinned blocks.
+
 Dispatch: CPU slots and a CPU table run the plain version beside each
 wrapper (``*_plain``); CUDA slots and a **pinned** CPU table launch the
 kernel; anything else raises :class:`CudaError`. A table that is not pinned
@@ -20,7 +24,10 @@ never falls back to a host-side ``index_select``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import os
+import warnings
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,6 +48,89 @@ HOST_SCATTER = kernels.Kernel(
     "host_scatter", "host_rows.cu", "wg_host_scatter", _ARGS,
     replaces="wholegraph_tpu/ops/gather_pallas.py:1183",  # _host_put_kernel
 )
+
+
+# The host tier's memory (HostEmbedding): a page-locked, mapped allocation from the kernels'
+# library (csrc/host_rows.cu wg_host_alloc, cudaHostAlloc) for the table and one for each f32
+# optimizer state table, each request rounded up to a multiple of HOST_ROUND bytes. On an H100
+# (tools/host_read_probe.py --parts tier, every choice held at once and timed in turns):
+# allocations whose size is no multiple of 2 MiB read 37-51 % slower, by kernel L's host
+# route and E alike; one allocation for all three tables read 11 % slower than one a table.
+HOST_ROUND = 2 << 20
+_HOST_BYTES = {"current": 0, "allocations": 0}
+_DEFERRED: List[Tuple[int, int]] = []  # (pointer, bytes) whose free waits for a capture's end
+
+
+def _host_lib():
+    lib = kernels.load("host_rows.cu")
+    if not getattr(lib, "_alloc_ready", False):
+        lib.wg_host_alloc.argtypes = [_L, _I, ctypes.POINTER(_P)]
+        lib.wg_host_free.argtypes = [_P]
+        lib.wg_host_alloc.restype = lib.wg_host_free.restype = _I
+        lib.wg_error_string.argtypes = [_I]
+        lib.wg_error_string.restype = ctypes.c_char_p
+        lib._alloc_ready = True
+    return lib
+
+
+def _release(lib, ptr: int, nbytes: int) -> None:
+    rc = lib.wg_host_free(ptr)
+    if rc != 0:
+        warnings.warn(f"wg_host_free of {nbytes} host bytes failed with CUDA error {rc} "
+                      f"({lib.wg_error_string(rc).decode()}); the memory stays allocated",
+                      RuntimeWarning, stacklevel=2)
+        return
+    _HOST_BYTES["current"] -= nbytes
+
+
+def release_deferred_host_memory() -> None:
+    """Frees the host memory whose last view died while the current stream
+    was capturing a CUDA graph, where a free (which synchronizes the device)
+    would invalidate the capture; :func:`host_zeros` and every later free
+    call it too."""
+    if _DEFERRED and not torch.cuda.is_current_stream_capturing():
+        lib = _host_lib()
+        while _DEFERRED:
+            _release(lib, *_DEFERRED.pop())
+
+
+def _free_host(lib, ptr: int, nbytes: int) -> None:
+    _DEFERRED.append((ptr, nbytes))
+    release_deferred_host_memory()
+
+
+def host_zeros(shape: Sequence[int], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A zero CPU tensor of ``shape`` and ``dtype`` in an allocation of its
+    own bytes: for a CUDA ``device`` page-locked and mapped, from the
+    kernels' library (``wg_host_alloc``) in a request rounded up to a
+    multiple of HOST_ROUND, and freed with the last view of it, after the
+    card's work (or, if that happens during a graph capture, at the next
+    call of :func:`release_deferred_host_memory`); for the CPU ordinary
+    memory. :func:`host_alloc_bytes` counts the bytes the library holds."""
+    shape = tuple(int(d) for d in shape)
+    nbytes = torch.Size(shape).numel() * torch.tensor([], dtype=dtype).element_size()
+    check_input(nbytes > 0, "a host allocation needs a positive size")
+    if device.type != "cuda":
+        return torch.zeros(shape, dtype=dtype)
+    release_deferred_host_memory()
+    asked = -(-nbytes // HOST_ROUND) * HOST_ROUND
+    lib = _host_lib()
+    ptr = ctypes.c_void_p()
+    rc = lib.wg_host_alloc(asked, min(os.cpu_count() or 1, 16), ctypes.byref(ptr))
+    if rc != 0 or not ptr.value:
+        raise CudaError(f"wg_host_alloc of {asked} bytes failed with CUDA error {rc} "
+                        f"({lib.wg_error_string(rc).decode()})")
+    block = (ctypes.c_uint8 * nbytes).from_address(ptr.value)
+    weakref.finalize(block, _free_host, lib, ptr.value, asked)
+    _HOST_BYTES["current"] += asked
+    _HOST_BYTES["allocations"] += 1
+    return torch.frombuffer(block, dtype=torch.uint8).view(dtype).view(shape)
+
+
+def host_alloc_bytes() -> Dict[str, int]:
+    """Bytes of host memory the kernels' library holds for host tables
+    (:func:`host_zeros`): ``current`` and the ``allocations`` made."""
+    return dict(_HOST_BYTES)
 
 
 def pinned_empty(shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
@@ -74,7 +164,7 @@ def _on_card(table: torch.Tensor, *on_device: torch.Tensor) -> bool:
                         f"{[str(t.device) for t in on_device]}")
     if not table.is_pinned():
         raise CudaError("the host table is not in pinned, mapped memory (allocate it with "
-                        "pinned_empty); a kernel cannot reach it from the card")
+                        "host_zeros or pinned_empty); a kernel cannot reach it from the card")
     check_input(table.is_contiguous(), "host table must be contiguous")
     return True
 

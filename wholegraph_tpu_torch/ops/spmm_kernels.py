@@ -7,9 +7,13 @@ kernel (``csrc/neighbor_agg.cu``, ``csrc/csr_spmm.cu``,
 ``csrc/csr_sddmm.cu``) or raises; on CPU tensors, and only there, it runs
 the plain PyTorch version beside it (``*_plain``).
 
-* :func:`neighbor_reduce` (kernel D) is ``fused_padded_sum``;
-  :class:`NeighborReduce` gives it the scatter-add gradient of
-  ``spmm_pallas._fps_bwd`` (``spmm_pallas.py:146-158``).
+* :func:`neighbor_reduce` (kernel D) is ``fused_padded_sum``, whose forward
+  clips a valid slot's id into ``[0, U)``. :class:`NeighborReduce` gives it
+  the gradient of JAX's ``padded_reduce`` (``wholegraph_tpu/ops/spmm.py:
+  35-43``, a gather through the same clip): a scatter-add that sends a valid
+  slot's gradient to its clipped row. That equals ``spmm_pallas._fps_bwd``'s
+  (``spmm_pallas.py:146-158``) only for ids in range: ``_fps_bwd`` drops an
+  id ``>= U`` and sends -1 to row ``U - 1`` (ROADMAP quirk R14).
 * :func:`csr_spmm` (kernel G) and :func:`csr_sddmm` (kernel H) replace the
   windowed kernels ``_spmm_window_kernel`` and ``_sddmm_window_kernel``.
   :class:`CsrSpmm` and :class:`CsrSddmm` give them gradients whose

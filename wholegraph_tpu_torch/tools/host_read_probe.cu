@@ -4,8 +4,11 @@
 // launches these; kernel E (csrc/host_rows.cu) was designed from what they
 // show. Built and driven by host_read_probe.py.
 //
-// All probes take rows of exactly 1 KB (the bench's 256 f32) and slots in
-// [0, n_rows), and copy each fetched row to out[i].
+// The row probes below take rows of exactly 1 KB (the bench's 256 f32) and
+// slots in [0, n_rows), and copy each fetched row to out[i]. The record
+// probes (probe_records, further down) read, write, or read and write back
+// a sparse optimizer's three 1 KB parts of a row (a LazyAdam row's table, m
+// and v), either from three tables or from one table of 3 KB records.
 //
 //  warp_rows<R>: one warp per R consecutive slots; every lane issues its two
 //      16-byte loads of each of the R rows before any store, so R KB are in
@@ -21,6 +24,11 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+#include <sys/mman.h>
+
+#include <thread>
+#include <vector>
 
 namespace {
 
@@ -164,4 +172,122 @@ extern "C" int probe_host_read(const void* host_base, int64_t host_offset, const
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Record probes: three 1 KB parts a slot, from three tables (part q of slot s
+// at parts[q] + s * stride) or from one table of 3 KB records (parts[q] =
+// record base + q KB, stride 3 KB). One warp a slot; a lane issues all six of
+// its 16-byte loads (two a part, parts in ascending address order) before any
+// store. out[i] holds slot i's three parts, 3 KB, in either case.
+//   mode 0: read into out;
+//   mode 1: write out[i] ^ mask back to the slot's parts (the write-back alone);
+//   mode 2: read into out and write the value read ^ mask back (read, then
+//           write-back). `mask` is an argument, so a store of the value read
+//           (mask 0) is never dropped by the compiler.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int PARTS = 3;
+constexpr int PART_VECS = 64;  // 1 KB of uint4
+constexpr int PART_LOADS = PART_VECS / 32;
+
+struct Parts {
+  uint4* p[PARTS];
+  int64_t stride;  // uint4 a slot
+};
+
+__device__ __forceinline__ uint4 xor4(uint4 v, unsigned m) {
+  return make_uint4(v.x ^ m, v.y ^ m, v.z ^ m, v.w ^ m);
+}
+
+__global__ void record_probe(Parts parts, const int32_t* __restrict__ slots,
+                             uint4* __restrict__ out, int64_t n_slots, int mode, unsigned mask) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps = (int64_t(gridDim.x) * blockDim.x) >> 5;
+  for (int64_t i = warp; i < n_slots; i += n_warps) {
+    const int64_t at = int64_t(slots[i]) * parts.stride + lane;
+    uint4* o = out + i * (PARTS * PART_VECS) + lane;
+    uint4 v[PARTS][PART_LOADS];
+    if (mode == 1) {
+#pragma unroll
+      for (int q = 0; q < PARTS; ++q)
+#pragma unroll
+        for (int j = 0; j < PART_LOADS; ++j)
+          parts.p[q][at + 32 * j] = xor4(o[q * PART_VECS + 32 * j], mask);
+      continue;
+    }
+#pragma unroll
+    for (int q = 0; q < PARTS; ++q)
+#pragma unroll
+      for (int j = 0; j < PART_LOADS; ++j) v[q][j] = parts.p[q][at + 32 * j];
+#pragma unroll
+    for (int q = 0; q < PARTS; ++q)
+#pragma unroll
+      for (int j = 0; j < PART_LOADS; ++j) {
+        o[q * PART_VECS + 32 * j] = v[q][j];
+        if (mode == 2) parts.p[q][at + 32 * j] = xor4(v[q][j], mask);
+      }
+  }
+}
+
+}  // namespace
+
+// parts: three byte offsets from one mapped allocation's base (the record
+// table's three parts) when bases[1] and bases[2] are null, else three
+// allocations' bases (offset 0 each); stride in bytes. Returns the CUDA error.
+extern "C" int probe_records(void* const* bases, const int64_t* offsets, int64_t stride,
+                             const void* slots, void* out, int64_t n_slots, int mode,
+                             unsigned mask, void* stream) {
+  Parts parts;
+  for (int q = 0; q < PARTS; ++q) {
+    void* base = bases[q] ? bases[q] : bases[0];
+    void* d = nullptr;
+    cudaError_t e = cudaHostGetDevicePointer(&d, base, 0);
+    if (e != cudaSuccess) return int(e);
+    parts.p[q] = reinterpret_cast<uint4*>(static_cast<char*>(d) + offsets[q]);
+  }
+  parts.stride = stride / 16;
+  if (stride % 16 || mode < 0 || mode > 2) return int(cudaErrorInvalidValue);
+  record_probe<<<132 * 16, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      parts, static_cast<const int32_t*>(slots), static_cast<uint4*>(out), n_slots, mode, mask);
+  return int(cudaGetLastError());
+}
+
+// Host memory of `bytes` for the probes, pinned and mapped: backing 0 by
+// cudaHostAlloc; backing 1 by an anonymous mmap that asks for transparent huge
+// pages (madvise MADV_HUGEPAGE), touched by `threads` threads and registered
+// with cudaHostRegister(cudaHostRegisterMapped). Returns the CUDA error, or
+// cudaErrorMemoryAllocation when the mmap fails.
+extern "C" int probe_alloc(int64_t bytes, int backing, int threads, void** ptr) {
+  *ptr = nullptr;
+  if (backing == 0)
+    return int(cudaHostAlloc(ptr, size_t(bytes), cudaHostAllocMapped | cudaHostAllocPortable));
+  void* p = mmap(nullptr, size_t(bytes), PROT_READ | PROT_WRITE, MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+  if (p == MAP_FAILED) return int(cudaErrorMemoryAllocation);
+  madvise(p, size_t(bytes), MADV_HUGEPAGE);
+  std::vector<std::thread> pool;
+  const int64_t chunk = (bytes + threads - 1) / threads;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([=] {
+      const int64_t lo = t * chunk, hi = lo + chunk < bytes ? lo + chunk : bytes;
+      if (lo < hi) memset(static_cast<char*>(p) + lo, 0, size_t(hi - lo));
+    });
+  for (auto& th : pool) th.join();
+  cudaError_t e = cudaHostRegister(p, size_t(bytes), cudaHostRegisterMapped | cudaHostRegisterPortable);
+  if (e != cudaSuccess) {
+    munmap(p, size_t(bytes));
+    return int(e);
+  }
+  *ptr = p;
+  return 0;
+}
+
+extern "C" int probe_free(void* ptr, int64_t bytes, int backing) {
+  if (backing == 0) return int(cudaFreeHost(ptr));
+  cudaError_t e = cudaHostUnregister(ptr);
+  munmap(ptr, size_t(bytes));
+  return int(e);
 }
