@@ -19,6 +19,13 @@ the examples under the launcher and the multichip dry run. In order:
 
 1. builds every hand-written kernel from ``wholegraph_tpu_torch/csrc``, and
    the native file reader (``csrc/fastio.cpp``) with the host compiler;
+1a. ``[stamp]``: the Timeline's stamp kernel (``utils.perf.STAMP``) held
+   against its plain version (``perf._stamp_plain``, a CPU Timeline): the
+   same nested spans run eagerly and, captured in a CUDA graph, replayed
+   twice, with rings of STAMP_CAPACITIES rows (below, between and above
+   the stamps asked for); the rings' tags (span, entry or exit, host-clock
+   index), the cursor and the drop count must be equal, and the card's
+   clock must never run back;
 2. measures the host link: the pinned->card and card->pinned rate of a
    1 GiB ``copy_`` (CUDA events), the yardstick printed beside kernels E and
    F (their bounds take the link's data-sheet peak, LINK_BYTES_PER_S), and
@@ -57,9 +64,11 @@ the examples under the launcher and the multichip dry run. In order:
    the card and on the CPU, losses within 1e-5 and the tables' summed row
    gradients (SGD) within 1e-4 of the largest;
 6. the device-memory path: resets the launch counters, trains STEPS
-   full-width steps timed by CUDA events (per step and per stage of
-   ``train.STAGES``), fails if any of kernels A-D was not launched or the
-   sampler launched anything but kernel C's hop, once a hop, and profiles
+   full-width steps, each timed on the card by a ``utils.perf.Timeline``
+   (its ``step`` span and the spans of ``train.STAGES``; launch counts,
+   here and in every phase, leave the Timeline's stamps out, which are
+   printed beside them), fails if any of kernels A-D was not launched or the sampler
+   launched anything but kernel C's hop, once a hop, and profiles
    ten more steps with ``torch.profiler`` (launches per step, busy share,
    the sample stage beside the step);
 6a. ``[io]``: a second ``SageTrainConfig()`` state after IO_WARM_STEPS
@@ -422,6 +431,7 @@ from wholegraph_tpu_torch.ops import sampling as sampling_mod  # noqa: E402
 from wholegraph_tpu_torch.ops import spmm_kernels as S  # noqa: E402
 from wholegraph_tpu_torch.tools import kernel_variants  # noqa: E402
 from wholegraph_tpu_torch.train import STAGES  # noqa: E402
+from wholegraph_tpu_torch.utils import perf  # noqa: E402
 from wholegraph_tpu_torch.utils.perf import measure_chain  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -522,7 +532,9 @@ def reset_launches():
 
 
 def read_launches():
-    return {k.name: k.launches for k in KERNELS}
+    """Launches of the paths' kernels since :func:`reset_launches`: all but
+    the Timeline's stamps (``perf.STAMP.launches``), which time them."""
+    return {k.name: k.launches for k in KERNELS if k is not perf.STAMP}
 
 
 def free_pinned():
@@ -1492,33 +1504,114 @@ def small_parity():
         f"max row diffs {errs} (tol {tol}); host tier: {len(hot)} rows cached, coherent")
 
 
+STAMP_SPANS = 12  # spans of stamp_phase's program: 24 stamps a run
+STAMP_CAPACITIES = (10, 30, 64)  # below one run's stamps, between one and two, above two
+
+
+def stamp_program(x):
+    """STAMP_SPANS spans over three names, nested two deep, each around a
+    small elementwise kernel on ``x``."""
+    for i in range(STAMP_SPANS // 2):
+        with perf.span(f"outer{i % 3}"):
+            x.mul_(1.0001)
+            with perf.span("inner"):
+                x.add_(1e-4)
+    return x
+
+
+def stamp_phase():
+    """``[stamp]``: kernel STAMP against ``perf._stamp_plain``. For each
+    capacity, the card's ring after the program run eagerly inside a
+    Timeline, and after a graph captured inside one and replayed twice, is
+    compared with a CPU Timeline's: the CPU runs the program once eagerly,
+    and for the graph the same tags with no host-clock index, twice, into
+    ``_stamp_plain``. Tags, cursor and drops must be equal; the card's ns
+    never fall."""
+    dev = torch.device("cuda")
+    out = []
+    for cap in STAMP_CAPACITIES:
+        for route in ("eager", "graph"):
+            x = torch.ones(1 << 16, device=dev)
+            ref = perf.Timeline(capacity=1 << 10, device="cpu")
+            with ref:
+                stamp_program(torch.ones(4))
+            tags = ref.buf[1:1 + int(ref.buf[0, 0]), 0].tolist()
+            tl = perf.Timeline(capacity=cap, device=dev)
+            if route == "eager":
+                with tl:
+                    stamp_program(x)
+            else:
+                tags = [t & 0xFFFFFFFF for t in tags] * 2  # a replay's stamps: no host clock
+                g = torch.cuda.CUDAGraph()
+                with tl:
+                    stamp_program(x)  # warm the kernels
+                    tl.buf.zero_()
+                    with torch.cuda.graph(g):
+                        stamp_program(x)
+                    g.replay()
+                    g.replay()
+            want = torch.zeros((cap + 1, 2), dtype=torch.int64)
+            for t in tags:
+                perf._stamp_plain(want, cap, t)
+            rows = tl.read()
+            got = tl.buf.cpu()
+            n = min(len(tags), cap)
+            ns = got[1:1 + n, 1].tolist()
+            ties = sum(a == b for a, b in zip(ns, ns[1:]))
+            e = {"capacity": cap, "route": route, "asked": len(tags), "cursor": int(got[0, 0]),
+                 "dropped": tl.dropped, "rows": len(rows), "ns_ties": ties,
+                 "span_ns": ns[-1] - ns[0] if n > 1 else 0}
+            require(int(got[0, 0]) == int(want[0, 0]) == len(tags), f"[stamp] cursor: {e}")
+            require(tl.dropped == max(len(tags) - cap, 0), f"[stamp] dropped: {e}")
+            require(got[1:, 0].tolist() == want[1:, 0].tolist(), f"[stamp] tags differ: {e}")
+            require(all(a <= b for a, b in zip(ns, ns[1:])) and (n < 2 or ns[-1] > ns[0]),
+                    f"[stamp] the card's clock ran back: {e}, {ns}")
+            require([r[:2] for r in rows] == [(ref.names[(t & 0xFFFFFFFF) >> 1],
+                                               perf.EXIT if t & 1 else perf.ENTER)
+                                              for t in tags[:n]], f"[stamp] rows: {e}")
+            require(all((r[3] is None) == (route == "graph") for r in rows),
+                    f"[stamp] host clocks: {e}")
+            out.append(e)
+            log(f"[stamp] {json.dumps(e)}")
+    return out
+
+
 def train_timed(state, batch, steps, seed0, step=None):
-    """``steps`` timed steps of ``step`` (``wt.train_step`` unless given):
-    per-step and per-stage CUDA-event ms, host clock ms, losses."""
+    """``steps`` timed steps of ``step`` (``wt.train_step`` unless given),
+    each inside a ``utils.perf.Timeline``: per-step device ms (its ``step``
+    span) and per-stage device ms (the spans of ``train.STAGES`` directly
+    inside it, summed: the hetero step applies once a type), host clock
+    ms, losses."""
     step = step or wt.train_step
-    names = ("start",) + STAGES
     step_ms, host_ms, losses = [], [], []
     stage_ms = {s: [] for s in STAGES}
     for i in range(steps):
         c, y = batch()
         torch.cuda.synchronize()
-        events = {}
-
-        def mark(stage):
-            events[stage] = torch.cuda.Event(enable_timing=True)
-            events[stage].record()
-
+        tl = perf.Timeline(capacity=1024, device=c.device)
         t0 = time.perf_counter()
-        mark("start")
-        loss = step(state, c, y, seed=seed0 + i, mark=mark)
+        with tl:
+            loss = step(state, c, y, seed=seed0 + i)
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
-        step_ms.append(events["start"].elapsed_time(events[STAGES[-1]]))
-        for a, b in zip(names, names[1:]):
-            stage_ms[b].append(events[a].elapsed_time(events[b]))
+        ms = stage_sums(tl)
+        step_ms.append(ms["step"])
+        for s in STAGES:
+            stage_ms[s].append(ms.get(s, 0.0))
         losses.append(float(loss))
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
     return step_ms, host_ms, stage_ms, losses, c
+
+
+def stage_sums(tl):
+    """Device ms of a Timeline's one ``step`` span and of the spans directly
+    inside it, summed by name."""
+    out = {}
+    for s in tl.spans():
+        if s.depth <= 1:
+            out[s.name] = out.get(s.name, 0.0) + s.ms
+    require(tl.dropped == 0, f"the Timeline dropped {tl.dropped} stamps")
+    return out
 
 
 def timed_steps(tag, state, batch, steps, profile_steps=10, step=None):
@@ -1532,9 +1625,9 @@ def timed_steps(tag, state, batch, steps, profile_steps=10, step=None):
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_ms, host_ms, stage_ms, losses, c = train_timed(state, batch, steps, 2, step)
-    launches = read_launches()
+    launches, stamps = read_launches(), perf.STAMP.launches
     peak = torch.cuda.max_memory_allocated()
-    report_steps(tag, steps, step_ms, host_ms, stage_ms, losses, peak, launches)
+    report_steps(tag, steps, step_ms, host_ms, stage_ms, losses, peak, launches, stamps)
     med, sample = statistics.median(step_ms), statistics.median(stage_ms["sample"])
     summary = {"step_median_ms": med, "step_p90_ms": quantile(step_ms, 0.9),
                "sample_median_ms": sample, "peak_bytes": peak,
@@ -1544,15 +1637,16 @@ def timed_steps(tag, state, batch, steps, profile_steps=10, step=None):
     return summary, launches, c
 
 
-def report_steps(tag, steps, step_ms, host_ms, stage_ms, losses, peak, launches):
+def report_steps(tag, steps, step_ms, host_ms, stage_ms, losses, peak, launches, stamps):
     log(f"[{tag}] {steps} steps at full width: first losses {losses[:5]}, last {losses[-5:]}")
-    log(f"[{tag}] step ms (CUDA events) median {statistics.median(step_ms)}, "
+    log(f"[{tag}] step ms (Timeline) median {statistics.median(step_ms)}, "
         f"p90 {quantile(step_ms, 0.9)}, min {min(step_ms)}, max {max(step_ms)}; "
         f"sample stage median {statistics.median(stage_ms['sample'])}; "
         f"host clock median {statistics.median(host_ms)}; "
         f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB); hand-written kernel launches "
-        f"{launches} ({sum(launches.values()) / steps} per step)")
-    log(f"[{tag}] stage ms medians (CUDA events): "
+        f"{launches} ({sum(launches.values()) / steps} per step; the Timeline's stamps "
+        f"{stamps / steps} per step beside them)")
+    log(f"[{tag}] stage ms medians (Timeline): "
         + json.dumps({s: statistics.median(v) for s, v in stage_ms.items()}))
 
 
@@ -4852,24 +4946,25 @@ def world_exchange_split(emb, ids, iters=5):
 
 def world_steps(st, centers, rank, first, count, marks=None, step=None):
     """``count`` world-4 steps on this rank's share of ``centers[first:]``
-    (``step`` is ``wt.train_step`` unless given)."""
+    (``step`` is ``wt.train_step`` unless given); with ``marks`` (a dict),
+    each step inside a ``utils.perf.Timeline`` and the device ms of the step
+    and of each stage (:func:`stage_sums`) appended to ``marks[name]``."""
     dev = st.labels.device
     losses = []
     for i in range(first, first + count):
         c = centers[i][rank].to(dev)
-        mark = None
-        if marks is not None:
-            torch.cuda.synchronize()
-            t = [time.perf_counter()]
-
-            def mark(stage, t=t):
-                torch.cuda.synchronize()
-                now = time.perf_counter()
-                marks.setdefault(stage, []).append((now - t[0]) * 1e3)
-                t[0] = now
-        losses.append(float((step or wt.train_step)(st, c, st.labels[c.long()], seed=i,
-                                                    mark=mark)))
+        tl = perf.Timeline(capacity=1024, device=dev) if marks is not None else None
+        with tl or contextlib.nullcontext():
+            losses.append(float((step or wt.train_step)(st, c, st.labels[c.long()], seed=i)))
+        if tl is not None:
+            for stage, ms in stage_sums(tl).items():
+                marks.setdefault(stage, []).append(ms)
     return losses
+
+
+def step_split(marks):
+    """:func:`world_steps`' ``marks``: (each step's device ms, each stage's median)."""
+    return marks["step"], {k: statistics.median(v) for k, v in marks.items() if k != "step"}
 
 
 def world_rank(rank, world, centers, check_ids):
@@ -5097,8 +5192,7 @@ def world_phase(cfg, smi):
                 f"[world] rank {r}: a kernel of the step never ran: {st}")
         require(sl["sorted_gather"] > 0, f"[world] rank {r}: kernel I never ran in the store: "
                                          f"{sl}")
-    stage_med = {k: statistics.median(v) for k, v in res[0]["timed"]["stage_ms"].items()}
-    step_ms = [sum(x) for x in zip(*res[0]["timed"]["stage_ms"].values())]
+    step_ms, stage_med = step_split(res[0]["timed"]["stage_ms"])
     exch = res[0]["timed"]["exchange"]
     summary = {
         "step_median_ms": statistics.median(step_ms), "stage_medians_ms": stage_med,
@@ -6058,10 +6152,9 @@ def world_tier_phase(cfg, smi):
                 f"[world_tier] rank {r}: E {h['e_calls']} and L's host route {h['l_calls']} "
                 f"calls a step")
     h0 = res[0]["host"]
-    steps = [sum(x) for x in zip(*h0["stage_ms"].values())]
+    steps, stage_med = step_split(h0["stage_ms"])
     summary["host"] = {
-        "sgd": errs, "step_median_ms": statistics.median(steps),
-        "stage_medians_ms": {k: statistics.median(v) for k, v in h0["stage_ms"].items()},
+        "sgd": errs, "step_median_ms": statistics.median(steps), "stage_medians_ms": stage_med,
         "lazy_losses": h0["lazy_losses"], "pinned_asked_per_rank": [o["host"]["pinned_asked"]
                                                                      for o in res],
         "pinned_held_per_rank": [o["host"]["pinned_held"] for o in res],
@@ -6118,9 +6211,8 @@ def world_tier_phase(cfg, smi):
             and het["rows_sensitivity"] >= WORLD_TOL["sgd_sensitivity"],
             f"[world_tier] hetero at world 4 against world 1: {het}")
     e0 = res[0]["hetero"]
-    steps = [sum(x) for x in zip(*e0["stage_ms"].values())]
-    het.update(step_ms=steps, stage_medians_ms={k: statistics.median(v)
-                                                for k, v in e0["stage_ms"].items()},
+    steps, stage_med = step_split(e0["stage_ms"])
+    het.update(step_ms=steps, stage_medians_ms=stage_med,
                rounds={r: o["hetero"]["rounds"] for r, o in enumerate(res)},
                type_slots=e0["type_slots"], slots=e0["slots"], build_s=e0["build_s"],
                peak_bytes_per_rank=[o["hetero"]["peak_bytes"] for o in res])
@@ -6198,6 +6290,7 @@ def main():
     secs = kernels.build_all()
     secs[wt.io.native.SOURCE] = kernels.build_host(wt.io.native.SOURCE)  # host C++, by c++
     log(f"[build] {len(secs)} sources in {time.perf_counter() - t0:.2f} s: {secs}")
+    stamp_phase()
 
     link = link_rates()
     log(f"[link] pinned->card {link['h2d_GBps']} GB/s, card->pinned {link['d2h_GBps']} GB/s "

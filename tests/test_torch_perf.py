@@ -1,54 +1,23 @@
-"""``utils/perf.py`` of the port against the JAX package's, on the CPU, and
-the small public names ported beside it: ``utils.dtypes.as_numpy_dtype``
-and ``embedding.host_embedding.bench_host_gather``. (``ops.gather.
-gather_hierarchical`` is held at world 4 in ``tests/test_torch_exchange.py``.)
+"""``utils/perf.py``'s chained-call timer on the CPU, and the small public
+names ported beside it: ``utils.dtypes.as_numpy_dtype`` against the JAX
+package's and ``embedding.host_embedding.bench_host_gather``.
+(``ops.gather.gather_hierarchical`` is held at world 4 in
+``tests/test_torch_exchange.py``; the spans and the Timeline in
+``tests/test_torch_timeline.py``.)
 
-Exact: the meter's sample count and its metrics from the same samples, and
-every numpy dtype. The timers are held to what a wall clock can promise:
-positive seconds."""
-
-import os
-import time
+Exact: every numpy dtype. The timers are held to what a wall clock can
+promise: positive seconds."""
 
 import numpy as np
 import pytest
 import torch
 
 from wholegraph_tpu.utils import dtypes as jdtypes
-from wholegraph_tpu.utils import perf as jperf
 from wholegraph_tpu_torch.embedding.host_embedding import bench_host_gather
 from wholegraph_tpu_torch.utils import dtypes, perf
 from wholegraph_tpu_torch.utils.error import CudaError
 
 torch.set_num_threads(1)
-
-
-@pytest.mark.parametrize("warmup,run_count", [(0, 1), (2, 5), (1, 7)])
-def test_meter_counts_its_samples(warmup, run_count):
-    calls = []
-    m = perf.PerformanceMeter(warmup=warmup, run_count=run_count, device="cpu")
-    assert m.run(lambda: calls.append(1)) is m
-    assert len(calls) == warmup + run_count and len(m.samples) == run_count
-    assert all(s >= 0 for s in m.samples) and m.min_time <= m.mean_time
-
-
-def test_meter_honours_max_seconds():
-    m = perf.PerformanceMeter(warmup=0, run_count=50, max_seconds=0.02, device="cpu")
-    m.run(lambda: time.sleep(0.015))
-    assert 1 <= len(m.samples) < 50
-
-
-def test_meter_metrics_are_jax_metrics():
-    samples = [0.25, 0.5, 1.25]
-    t, j = perf.PerformanceMeter(device="cpu"), jperf.PerformanceMeter()
-    t.samples, j.samples = list(samples), list(samples)
-    assert (t.mean_time, t.min_time) == (j.mean_time, j.min_time)
-    for a, b in ((t.bandwidth(3 << 30), j.bandwidth(3 << 30)),
-                 (t.bandwidth(10**9, "rows"), j.bandwidth(10**9, "rows")),
-                 (t.throughput(4096, "ids", "ids/s"), j.throughput(4096, "ids", "ids/s"))):
-        assert (a.name, a.value, a.unit) == (b.name, b.value, b.unit)
-    empty = perf.PerformanceMeter(device="cpu")
-    assert (empty.mean_time, empty.min_time) == (0.0, 0.0)
 
 
 def test_measure_chain_on_the_cpu():
@@ -68,22 +37,6 @@ def test_the_card_is_the_default():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(CudaError):
         perf.measure_chain(lambda i: None, 2)
-    with pytest.raises(CudaError):
-        perf.PerformanceMeter().run(lambda: None)
-
-
-def test_trace_writes_a_profile(tmp_path):
-    with perf.trace(str(tmp_path), device="cpu"):
-        with perf.annotate("matmul"):
-            torch.randn(32, 32) @ torch.randn(32, 32)
-    files = [f for _, _, fs in os.walk(tmp_path) for f in fs]
-    assert any(f.endswith(".pt.trace.json") for f in files), files
-    text = "".join(open(os.path.join(d, f)).read() for d, _, fs in os.walk(tmp_path) for f in fs)
-    assert "matmul" in text
-
-
-def test_device_memory_stats_without_a_card():
-    assert perf.device_memory_stats("cpu") == {}
 
 
 @pytest.mark.parametrize("name", sorted(dtypes.DTYPES))

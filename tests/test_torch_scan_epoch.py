@@ -302,11 +302,11 @@ def test_epoch_refusals(monkeypatch):
     monkeypatch.setattr(Embedding, "world", property(lambda self: 4))
     calls = []
 
-    def step(state, centers, labels, seed, generator=None, *, corrections=None):
+    def step(state, centers, labels, seed, generator, corrections):
         calls.append((centers.clone(), int(seed), corrections.clone()))
         return torch.tensor(float(len(calls)))
 
-    monkeypatch.setattr(T, "train_step", step)
+    monkeypatch.setattr(T, "_step_body", step)  # train_step's body, inside the epoch's step span
     c = torch.arange(S * cfg.batch, dtype=torch.int32).view(S, -1)
     losses = T.train_epoch(st, c, c, torch.arange(S) + SEED0)
     assert torch.equal(losses, torch.arange(1.0, S + 1))

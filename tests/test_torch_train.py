@@ -28,6 +28,7 @@ from wholegraph_tpu_torch.train import STAGES
 from wholegraph_tpu_torch.embedding import Embedding, HostEmbedding, LazyAdam, hot_ids_by_degree
 from wholegraph_tpu_torch.graph import GraphStructure
 from wholegraph_tpu_torch.models import HomoGNN, params_from_jax
+from wholegraph_tpu_torch.utils import perf
 
 torch.set_num_threads(1)
 
@@ -177,8 +178,16 @@ def test_default_config_is_bench_train_step():
 
 
 def test_train_step_marks_each_stage_once_in_order():
+    """A Timeline over ``train_step`` records one ``step`` span and, directly
+    inside it, each of :data:`STAGES` once, in order and within it."""
     state = build_synthetic(CFG, device="cpu", seed=2)
-    seen = []
     c = torch.arange(CFG.batch, dtype=torch.int32)
-    train_step(state, c, state.labels[c.long()], seed=0, mark=seen.append)
-    assert tuple(seen) == STAGES
+    with perf.Timeline(device="cpu") as tl:
+        train_step(state, c, state.labels[c.long()], seed=0)
+    spans = tl.spans()
+    step = [s for s in spans if s.depth == 0]
+    stages = [s for s in spans if s.depth == 1]
+    assert [s.name for s in step] == ["step"] and tuple(s.name for s in stages) == STAGES
+    assert all(step[0].start_ns <= s.start_ns <= s.end_ns <= step[0].end_ns for s in stages)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(stages, stages[1:]))
+    assert tl.dropped == 0

@@ -46,6 +46,7 @@ from ..ops.gather import (_bucket_cap, _round_up, gather as _store_gather, local
 from ..ops.gather_kernels import gather_rows
 from ..ops.optim_kernels import apply_rows
 from ..parallel.mesh import Mesh
+from ..utils import perf
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.dtypes import as_torch_dtype
 from ..utils.error import check_input
@@ -311,7 +312,16 @@ class Embedding:
         (:func:`~wholegraph_tpu_torch.train.train_epoch`): the update reads
         its step-dependent scalars there, and :attr:`step` is left for the
         caller to advance. ``unique_chunk`` is refused with it: finding the
-        last valid id reads the device on the host."""
+        last valid id reads the device on the host.
+
+        Its span is ``sparse_apply`` (``utils.perf.span``)."""
+        with perf.span("sparse_apply"):
+            return self._apply_gradients(ids, grads, lr, mask, assume_unique, unique_chunk,
+                                         capacity_factor, corrections)
+
+    def _apply_gradients(self, ids, grads, lr, mask, assume_unique, unique_chunk,
+                         capacity_factor, corrections) -> "Embedding":
+        """:meth:`apply_gradients` inside its span."""
         check_input(ids.dim() == 1 and grads.shape == (ids.shape[0], self.dim),
                     f"ids {tuple(ids.shape)} / grads {tuple(grads.shape)} mismatch")
         if unique_chunk is not None:

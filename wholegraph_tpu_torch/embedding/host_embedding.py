@@ -61,6 +61,7 @@ from ..ops.gather_kernels import gather_rows
 from ..ops.host_kernels import host_gather_rows, host_zeros
 from ..ops.optim_kernels import apply_rows_host
 from ..parallel.mesh import Mesh
+from ..utils import perf
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.dtypes import as_torch_dtype
 from ..utils.error import check_input
@@ -256,7 +257,12 @@ class HostEmbedding:
         rows over PCIe, updates them, writes them back and rewrites their
         cache lines; an optimizer from outside the registry runs kernel E on
         the table and each slot, its update, kernel F on each and kernel B
-        on the lines."""
+        on the lines. Its span is ``sparse_apply`` (``utils.perf.span``)."""
+        with perf.span("sparse_apply"):
+            return self._apply_gradients(ids, grads, lr, mask, capacity_factor)
+
+    def _apply_gradients(self, ids, grads, lr, mask, capacity_factor) -> "HostEmbedding":
+        """:meth:`apply_gradients` inside its span."""
         check_input(ids.dim() == 1 and grads.shape == (ids.shape[0], self.dim),
                     f"ids {tuple(ids.shape)} / grads {tuple(grads.shape)} mismatch")
         self.step += 1

@@ -35,6 +35,7 @@ import torch
 from ..ops.graph_ops import append_unique
 from ..ops.sampling import (SampleResult, SeedLike, csr_sample_neighbors,
                              interleave_col_weights, is_table)
+from ..utils import perf
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.error import check_input
 
@@ -327,55 +328,62 @@ class GraphStructure:
         ``seed`` may be a 0-dim integer tensor on the graph's device: every
         hop passes it on, and on the card kernels C and K read it there, so
         a CUDA graph of the step samples with each step's seed
-        (:func:`~wholegraph_tpu_torch.train.train_epoch`)."""
-        n = self.node_count
-        E = self.edge_count
-        kw = gather_kwargs or {}
-        off = -1 if self.sharded else 0  # the centre id of a padding slot
-        gids = centers.to(torch.int32)
-        gmask = (torch.ones(gids.shape, dtype=torch.bool, device=gids.device)
-                 if center_mask is None else center_mask)
-        hops: List[HopSubgraph] = []
-        level_gids, level_masks = [gids], [gmask]
-        for l, K in enumerate(fanouts):
-            U = gids.shape[0]
-            res = self.sample_one_hop(torch.where(gmask, gids, off), K, seed=seed, hop=l,
-                                      weighted=weighted, gather_kwargs=gather_kwargs)
-            emask = res.mask & gmask[:, None]
-            # distinct dummy ids for padding targets keep their slots unique
-            dummy = n + torch.arange(U, dtype=torch.int32, device=gids.device)
-            tgt = torch.where(gmask, gids, dummy)
-            nbrs = torch.where(emask, res.neighbors, 0).reshape(-1)
-            uids, _, nmap = append_unique(tgt, nbrs, emask.reshape(-1))
-            etypes = None
-            if is_table(self.edge_type):
-                eids = torch.where(emask, res.edge_ids, -1).reshape(-1)
-                etypes = torch.where(emask, self.edge_type.gather(eids, **kw).reshape(U, K), 0)
-            elif self.edge_type is not None:  # clip, as JAX's take does, then zero where masked
-                eids = torch.where(emask, res.edge_ids, 0).reshape(-1).long().clamp(0, E - 1)
-                etypes = torch.where(emask, self.edge_type.index_select(0, eids).reshape(U, K), 0)
-            next_mask = (uids >= 0) & (uids < n)
-            node_degree = None
-            if with_degrees and is_table(self.row_ptr):
-                lo = self.row_ptr.gather(torch.where(next_mask, uids, -1), **kw)
-                hi = self.row_ptr.gather(torch.where(next_mask, uids + 1, -1), **kw)
-                node_degree = torch.where(next_mask, hi - lo, 0).to(torch.int32)
-            elif with_degrees:
-                safe = torch.where(next_mask, uids, 0).long()
-                deg = self.row_ptr.index_select(0, safe + 1) - self.row_ptr.index_select(0, safe)
-                node_degree = torch.where(next_mask, deg, 0).to(torch.int32)
-            hops.append(HopSubgraph(
-                nbr_idx=torch.where(emask, nmap.reshape(U, K), 0),
-                mask=emask,
-                center_mask=gmask,
-                edge_type=etypes,
-                node_degree=node_degree,
-            ))
-            gmask = next_mask
-            # padding → the out-of-range sentinel n; gathers clip it and the
-            # apply's mask= keeps it away from the table and optimizer state
-            gids = torch.where(gmask, uids, n)
-            level_gids.append(gids)
-            level_masks.append(gmask)
-        return MultilayerSample(hops=hops, unique_gids=gids, unique_mask=gmask,
-                                level_gids=level_gids, level_masks=level_masks)
+        (:func:`~wholegraph_tpu_torch.train.train_epoch`).
+
+        Its span is ``sample`` (``utils.perf.span``); each hop's
+        ``append_unique`` is a span inside it."""
+        with perf.span("sample"):
+            n = self.node_count
+            E = self.edge_count
+            kw = gather_kwargs or {}
+            off = -1 if self.sharded else 0  # the centre id of a padding slot
+            gids = centers.to(torch.int32)
+            gmask = (torch.ones(gids.shape, dtype=torch.bool, device=gids.device)
+                     if center_mask is None else center_mask)
+            hops: List[HopSubgraph] = []
+            level_gids, level_masks = [gids], [gmask]
+            for l, K in enumerate(fanouts):
+                U = gids.shape[0]
+                res = self.sample_one_hop(torch.where(gmask, gids, off), K, seed=seed, hop=l,
+                                          weighted=weighted, gather_kwargs=gather_kwargs)
+                emask = res.mask & gmask[:, None]
+                # distinct dummy ids for padding targets keep their slots unique
+                dummy = n + torch.arange(U, dtype=torch.int32, device=gids.device)
+                tgt = torch.where(gmask, gids, dummy)
+                nbrs = torch.where(emask, res.neighbors, 0).reshape(-1)
+                uids, _, nmap = append_unique(tgt, nbrs, emask.reshape(-1))
+                etypes = None
+                if is_table(self.edge_type):
+                    eids = torch.where(emask, res.edge_ids, -1).reshape(-1)
+                    etypes = torch.where(emask, self.edge_type.gather(eids, **kw).reshape(U, K),
+                                         0)
+                elif self.edge_type is not None:  # clip, as JAX's take does, then zero where masked
+                    eids = torch.where(emask, res.edge_ids, 0).reshape(-1).long().clamp(0, E - 1)
+                    etypes = torch.where(emask,
+                                         self.edge_type.index_select(0, eids).reshape(U, K), 0)
+                next_mask = (uids >= 0) & (uids < n)
+                node_degree = None
+                if with_degrees and is_table(self.row_ptr):
+                    lo = self.row_ptr.gather(torch.where(next_mask, uids, -1), **kw)
+                    hi = self.row_ptr.gather(torch.where(next_mask, uids + 1, -1), **kw)
+                    node_degree = torch.where(next_mask, hi - lo, 0).to(torch.int32)
+                elif with_degrees:
+                    safe = torch.where(next_mask, uids, 0).long()
+                    deg = (self.row_ptr.index_select(0, safe + 1)
+                           - self.row_ptr.index_select(0, safe))
+                    node_degree = torch.where(next_mask, deg, 0).to(torch.int32)
+                hops.append(HopSubgraph(
+                    nbr_idx=torch.where(emask, nmap.reshape(U, K), 0),
+                    mask=emask,
+                    center_mask=gmask,
+                    edge_type=etypes,
+                    node_degree=node_degree,
+                ))
+                gmask = next_mask
+                # padding → the out-of-range sentinel n; gathers clip it and the
+                # apply's mask= keeps it away from the table and optimizer state
+                gids = torch.where(gmask, uids, n)
+                level_gids.append(gids)
+                level_masks.append(gmask)
+            return MultilayerSample(hops=hops, unique_gids=gids, unique_mask=gmask,
+                                    level_gids=level_gids, level_masks=level_masks)

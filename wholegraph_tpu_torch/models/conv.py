@@ -28,6 +28,7 @@ from torch import nn
 from ..graph.structure import HopSubgraph
 from ..ops import spmm as S
 from ..ops.spmm_kernels import CsrSpmm, transpose_csr
+from ..utils import perf
 from ..utils.error import check_input
 
 
@@ -91,10 +92,13 @@ def _fg_spmm(g: FullGraph, x: torch.Tensor, reduce: str,
              edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-graph aggregation. Sum and mean (weighted or not: the mean
     divides by the edge count) run :class:`CsrSpmm`, kernel G on the card,
-    whatever plan the graph records; max stays the plain COO ``spmm``."""
-    if reduce in ("sum", "mean"):
-        return CsrSpmm.apply(g.row_ptr, g.edge_src, x, edge_weight, reduce, True, g.transposed)
-    return S.spmm(g.edge_src, g.edge_dst, x, g.num_nodes, reduce, edge_weight=edge_weight)
+    whatever plan the graph records; max stays the plain COO ``spmm``. Its
+    span is ``fg_spmm``."""
+    with perf.span("fg_spmm"):
+        if reduce in ("sum", "mean"):
+            return CsrSpmm.apply(g.row_ptr, g.edge_src, x, edge_weight, reduce, True,
+                                 g.transposed)
+        return S.spmm(g.edge_src, g.edge_dst, x, g.num_nodes, reduce, edge_weight=edge_weight)
 
 
 def gat_attention(e_src: torch.Tensor, e_dst: torch.Tensor, src: torch.Tensor,

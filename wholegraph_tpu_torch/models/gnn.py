@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..graph.structure import MultilayerSample
+from ..utils import perf
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.error import check_input
 from ..utils.logger import warn
@@ -86,7 +87,9 @@ class HomoGNN(nn.Module):
     full graph (``gnn.py:108-114``).
 
     Dropout follows the JAX package's explicit ``train`` flag, not
-    ``nn.Module.training``, and draws from the ``generator`` it is given."""
+    ``nn.Module.training``, and draws from the ``generator`` it is given.
+    Each layer of the forward is the span ``conv.<model_type>``
+    (``conv.sage``, ``conv.gat``; ``utils.perf.span``)."""
 
     def __init__(self, in_dim: int, hidden_dim: int = 256, num_classes: int = 40,
                  num_layers: int = 2, dropout: float = 0.5, aggregator: str = "mean",
@@ -100,6 +103,7 @@ class HomoGNN(nn.Module):
                         f"hidden_dim {hidden_dim} must divide num_heads {num_heads}")
         dev = resolve_device(device)
         self.model_type = mt
+        self._span = "conv." + mt  # each layer's span (utils.perf.span)
         self.num_layers = num_layers
         self.dropout = dropout
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [num_classes]
@@ -144,17 +148,19 @@ class HomoGNN(nn.Module):
             check_input(graph is not None, "need sample= or graph=")
             adjs = [graph] * L
         for i, adj in enumerate(adjs):
-            if self.model_type == "rgcn":
-                et = edge_types[L - 1 - i] if edge_types is not None else None
-                x = self.convs[i](x, adj, et if et is not None else adj.edge_type)
-            else:
-                x = self.convs[i](x, adj)
-            if i < L - 1:
-                x = F.relu(x)
-                if train and self.dropout > 0:
-                    check_input(generator is not None, "train=True needs a dropout generator")
-                    keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout
-                    x = torch.where(keep, x / (1.0 - self.dropout), 0.0)
+            with perf.span(self._span):
+                if self.model_type == "rgcn":
+                    et = edge_types[L - 1 - i] if edge_types is not None else None
+                    x = self.convs[i](x, adj, et if et is not None else adj.edge_type)
+                else:
+                    x = self.convs[i](x, adj)
+                if i < L - 1:
+                    x = F.relu(x)
+                    if train and self.dropout > 0:
+                        check_input(generator is not None, "train=True needs a dropout generator")
+                        keep = (torch.rand(x.shape, generator=generator, device=x.device)
+                                >= self.dropout)
+                        x = torch.where(keep, x / (1.0 - self.dropout), 0.0)
         return x
 
 

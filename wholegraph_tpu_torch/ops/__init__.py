@@ -20,11 +20,12 @@ from .spmm import (padded_gather_neighbors, padded_reduce, padded_reduce_windowe
 from .spmm_kernels import (CSR_SDDMM, CSR_SPMM, NEIGHBOR_AGG, CsrSddmm, CsrSpmm, NeighborReduce,
                            csr_sddmm, csr_spmm, neighbor_reduce, sddmm_window, spmm_window,
                            transpose_csr)
+from ..utils.perf import STAMP
 
-# every hand-written kernel of the port, one per C entry point
+# every hand-written kernel of the port, one per C entry point (STAMP: the Timeline's clock)
 KERNELS = (ROW_GATHER, ROW_SCATTER, SAMPLE_HOP, SAMPLE_COLS, NEIGHBOR_AGG, HOST_GATHER,
            HOST_SCATTER, CSR_SPMM, CSR_SDDMM, SORTED_GATHER, ROW_GATHER_MASKED, SAMPLE_HOP_WEIGHTED,
-           SPARSE_APPLY, SPARSE_APPLY_HOST)
+           SPARSE_APPLY, SPARSE_APPLY_HOST, STAMP)
 
 __all__ = [
     "KERNELS",

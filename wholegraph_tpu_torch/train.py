@@ -47,7 +47,7 @@ step once a batch on its share of the stacked batches.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,6 +59,7 @@ from .models import HeteroGNN, HomoGNN, cross_entropy_loss
 from .ops.sampling import SeedLike
 from .ops.spmm_kernels import csr_edge_dst
 from .parallel.mesh import Mesh
+from .utils import perf
 from .utils.device import DeviceLike, resolve_device
 from .utils.error import check_input
 
@@ -192,6 +193,9 @@ def build_synthetic(config: SageTrainConfig = SageTrainConfig(), device: DeviceL
                           torch.optim.Adam(model.parameters(), lr=config.lr), labels)
 
 
+# the spans of a step inside its ``step`` span, in order (``utils.perf.span``): ``sample``
+# (``multilayer_sample``), ``gather`` (:func:`gather_features`), ``forward_backward``,
+# ``dense_adam`` and ``sparse_apply`` (the embedding's ``apply_gradients``)
 STAGES = ("sample", "gather", "forward_backward", "dense_adam", "sparse_apply")
 
 
@@ -235,26 +239,27 @@ def average_dense_grads(model: torch.nn.Module, loss: torch.Tensor, mesh: Mesh, 
 def gather_features(state: SageTrainState, ids: torch.Tensor, **kw) -> torch.Tensor:
     """The embedding's rows at ``ids``, through ``state.cache`` when there is
     one (``kw`` goes to the embedding's own gather; of it the cached gather
-    takes ``capacity_factor``, its exchange's bucket headroom)."""
-    if state.cache is None:
-        return state.embedding.gather(ids, **kw)
-    check_input(isinstance(state.embedding, Embedding),
-                "a hot cache serves a device-memory Embedding")
-    cf = {k: v for k, v in kw.items() if k == "capacity_factor"}
-    return gather_with_cache(state.embedding.as_sharded_table(), state.cache, ids, **cf)
+    takes ``capacity_factor``, its exchange's bucket headroom). Its span is
+    ``gather``."""
+    with perf.span("gather"):
+        if state.cache is None:
+            return state.embedding.gather(ids, **kw)
+        check_input(isinstance(state.embedding, Embedding),
+                    "a hot cache serves a device-memory Embedding")
+        cf = {k: v for k, v in kw.items() if k == "capacity_factor"}
+        return gather_with_cache(state.embedding.as_sharded_table(), state.cache, ids, **cf)
 
 
 def train_step(state: SageTrainState, centers: torch.Tensor, labels: torch.Tensor,
-               seed: SeedLike, mark: Optional[Callable[[str], None]] = None,
-               generator: Optional[torch.Generator] = None, *,
+               seed: SeedLike, generator: Optional[torch.Generator] = None, *,
                corrections: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One step on ``centers`` [B] with their ``labels`` [B]; ``seed`` keys
     the sampler, ``generator`` (when given) draws the dropout masks. Updates
     the model, its Adam state, the embedding (with ``train_embedding``) and
     the cache in place and returns the loss (a 0-dim tensor; reading it
-    waits for the device). ``mark``, when given, is called with each name of
-    :data:`STAGES` as that stage has been enqueued (a timer records a CUDA
-    event there).
+    waits for the device). The step is the span ``step``, and its stages
+    the spans of :data:`STAGES` inside it (``utils.perf``: a
+    ``perf.Timeline`` entered around the call times each on the card).
 
     At world W each rank passes its own centres and labels; the loss
     returned is the ranks' mean, the same on every rank.
@@ -266,13 +271,19 @@ def train_step(state: SageTrainState, centers: torch.Tensor, labels: torch.Tenso
     so that a CUDA graph of the step replays every step. The cache's
     touched lines are cleared in its own ``valid`` (``invalidate_touched_``),
     which such a graph reads."""
-    mark = mark or (lambda stage: None)
+    with perf.span("step"):
+        return _step_body(state, centers, labels, seed, generator, corrections)
+
+
+def _step_body(state: SageTrainState, centers: torch.Tensor, labels: torch.Tensor,
+               seed: SeedLike, generator: Optional[torch.Generator],
+               corrections: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`train_step` inside its ``step`` span."""
     cfg = state.config
     world = _world(state)
     ml = state.graph.multilayer_sample(centers, cfg.fanouts, seed=seed,
                                        weighted=cfg.sample_method == "weighted",
                                        with_degrees=cfg.degree_mode == "true")
-    mark("sample")
     ids = ml.unique_gids
     # the sampler's ids are unique, in ascending runs: the host tier reads
     # its misses as they come, with no sort
@@ -281,16 +292,15 @@ def train_step(state: SageTrainState, centers: torch.Tensor, labels: torch.Tenso
     rows = gather_features(state, ids, **kw) * ml.unique_mask[:, None]
     if cfg.train_embedding:
         rows.requires_grad_()
-    mark("gather")
-    logits = state.model(rows, ml, train=generator is not None, generator=generator)
-    loss = cross_entropy_loss(logits, labels)
-    state.dense_opt.zero_grad(set_to_none=True)
-    loss.backward()
-    mark("forward_backward")
-    if world > 1:  # the mean over the ranks' batches: JAX's loss over the global batch
-        loss = average_dense_grads(state.model, loss, state.embedding.mesh)
-    state.dense_opt.step()
-    mark("dense_adam")
+    with perf.span("forward_backward"):
+        logits = state.model(rows, ml, train=generator is not None, generator=generator)
+        loss = cross_entropy_loss(logits, labels)
+        state.dense_opt.zero_grad(set_to_none=True)
+        loss.backward()
+    with perf.span("dense_adam"):
+        if world > 1:  # the mean over the ranks' batches: JAX's loss over the global batch
+            loss = average_dense_grads(state.model, loss, state.embedding.mesh)
+        state.dense_opt.step()
     if cfg.train_embedding:
         lr = cfg.lr if cfg.embedding_lr is None else cfg.embedding_lr
         grads = rows.grad if world == 1 else rows.grad / world
@@ -301,7 +311,6 @@ def train_step(state: SageTrainState, centers: torch.Tensor, labels: torch.Tenso
                                         capacity_factor=cfg.capacity_factor, **kw)
         if state.cache is not None:  # trained lines are stale until the next refresh
             invalidate_touched_(state.cache, torch.where(ml.unique_mask, ids, -1))
-    mark("sparse_apply")
     return loss.detach()
 
 
@@ -332,10 +341,11 @@ class EpochGraph:
 
 def _reads(state: SageTrainState, generator: Optional[torch.Generator]) -> tuple:
     """What a captured step is bound to: the objects it was captured with,
-    the dense optimizer's rates and the address of every tensor of the
-    state it reads or writes. A graph is replayed only while they stay the
-    same; a replaced table, cache, parameter or optimizer state means a new
-    capture."""
+    the dense optimizer's rates, the address of every tensor of the state
+    it reads or writes and the active ``perf.Timeline`` (a graph captured
+    inside one writes its stamps into it). A graph is replayed only while
+    they stay the same; a replaced table, cache, parameter or optimizer
+    state, or another Timeline or none, means a new capture."""
     emb, opt, g = state.embedding, state.dense_opt, state.graph
     tensors = [emb.table, *emb.slots.values(), *state.model.parameters(),
                *(t for st in opt.state.values() for t in st.values()
@@ -346,7 +356,7 @@ def _reads(state: SageTrainState, generator: Optional[torch.Generator]) -> tuple
         tensors += [state.cache.hot_ids, state.cache.values, state.cache.valid]
     return (state.config, id(emb), id(opt), id(state.model), id(state.cache), id(generator),
             tuple(float(gr["lr"]) for gr in opt.param_groups),
-            tuple(t.data_ptr() for t in tensors))
+            tuple(t.data_ptr() for t in tensors), perf.active_timeline())
 
 
 def check_scannable(state: SageTrainState, graphed: bool = True) -> None:
@@ -365,13 +375,15 @@ def check_scannable(state: SageTrainState, graphed: bool = True) -> None:
 def _epoch_step(state: SageTrainState, rec: EpochGraph,
                 generator: Optional[torch.Generator]) -> None:
     """One step of the epoch, as the graph captures it: row ``rec.step`` of
-    the inputs, read on the device, its loss into ``rec.losses``."""
-    i = rec.step
-    loss = train_step(state, rec.centers.index_select(0, i)[0], rec.labels.index_select(0, i)[0],
-                      rec.seeds.index_select(0, i)[0], generator=generator,
-                      corrections=rec.corrections.index_select(0, i)[0])
-    rec.losses.index_copy_(0, i, loss.reshape(1).to(rec.losses.dtype))
-    i.add_(1)
+    the inputs, read on the device, its loss into ``rec.losses``; all of it
+    the span ``step``."""
+    with perf.span("step"):
+        i = rec.step
+        loss = _step_body(state, rec.centers.index_select(0, i)[0],
+                          rec.labels.index_select(0, i)[0], rec.seeds.index_select(0, i)[0],
+                          generator, rec.corrections.index_select(0, i)[0])
+        rec.losses.index_copy_(0, i, loss.reshape(1).to(rec.losses.dtype))
+        i.add_(1)
 
 
 def train_epoch(state: SageTrainState, centers_s: torch.Tensor, labels_s: torch.Tensor,
@@ -531,35 +543,34 @@ def build_hetero(config: HeteroTrainConfig = HeteroTrainConfig(), device: Device
 
 
 def hetero_train_step(state: HeteroTrainState, centers: torch.Tensor, labels: torch.Tensor,
-                      seed: int, mark: Optional[Callable[[str], None]] = None,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      seed: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One hetero step on paper ids ``centers`` [B] with their ``labels``;
     ``seed`` keys the sampler, ``generator`` (when given) draws the dropout
     masks. Updates the model, its Adam state and, with
     ``train_embedding``, each type's table in place; returns the loss.
-    ``mark`` as in :func:`train_step`. At world W (a store built with a
-    mesh) each rank passes its own centres and the step is that of the
-    ranks' mean loss, as in :func:`train_step`."""
-    mark = mark or (lambda stage: None)
-    cfg = state.config
-    emb0 = next(iter(state.store.embeddings.values()))
-    world = emb0.world
-    ml = state.graph.multilayer_sample(centers, cfg.fanouts, seed=seed)
-    mark("sample")
-    rows, masks = state.store.gather_typed(ml.unique_gids)
-    rows: Dict[str, torch.Tensor] = {n: r.requires_grad_() for n, r in rows.items()}
-    mark("gather")
-    logits = state.model(rows, masks, sample=ml, train=generator is not None, generator=generator)
-    loss = cross_entropy_loss(logits, labels)
-    state.dense_opt.zero_grad(set_to_none=True)
-    loss.backward()
-    mark("forward_backward")
-    if world > 1:  # the mean over the ranks' batches
-        loss = average_dense_grads(state.model, loss, emb0.mesh)
-    state.dense_opt.step()
-    mark("dense_adam")
-    if cfg.train_embedding:  # the sampler's ids are unique
-        state.store.apply_gradients(ml.unique_gids, {n: r.grad / world for n, r in rows.items()},
-                                    cfg.lr * 0.1, mask=ml.unique_mask, assume_unique=True)
-    mark("sparse_apply")
-    return loss.detach()
+    Its spans are :func:`train_step`'s (``sparse_apply`` once a type). At
+    world W (a store built with a mesh) each rank passes its own centres
+    and the step is that of the ranks' mean loss, as in :func:`train_step`."""
+    with perf.span("step"):
+        cfg = state.config
+        emb0 = next(iter(state.store.embeddings.values()))
+        world = emb0.world
+        ml = state.graph.multilayer_sample(centers, cfg.fanouts, seed=seed)
+        with perf.span("gather"):
+            rows, masks = state.store.gather_typed(ml.unique_gids)
+        rows: Dict[str, torch.Tensor] = {n: r.requires_grad_() for n, r in rows.items()}
+        with perf.span("forward_backward"):
+            logits = state.model(rows, masks, sample=ml, train=generator is not None,
+                                 generator=generator)
+            loss = cross_entropy_loss(logits, labels)
+            state.dense_opt.zero_grad(set_to_none=True)
+            loss.backward()
+        with perf.span("dense_adam"):
+            if world > 1:  # the mean over the ranks' batches
+                loss = average_dense_grads(state.model, loss, emb0.mesh)
+            state.dense_opt.step()
+        if cfg.train_embedding:  # the sampler's ids are unique
+            state.store.apply_gradients(ml.unique_gids,
+                                        {n: r.grad / world for n, r in rows.items()},
+                                        cfg.lr * 0.1, mask=ml.unique_mask, assume_unique=True)
+        return loss.detach()

@@ -1,8 +1,5 @@
-"""Performance measurement: a meter, a chained-call timer and the profiler.
-
-Port of ``wholegraph_tpu/utils/perf.py`` (reference:
-cpp/bench/common/wholegraph_benchmark.hpp:57-110, PerformanceMeter with
-warm-up, run count, a time cap and per-metric bandwidth). Import it as
+"""Performance measurement and tracing: a chained-call timer, spans at the
+port's layer boundaries, and a ring of device stamps. Import it as
 ``utils.perf``: ``utils.trace`` is the logger's.
 
 :func:`measure_chain` times a chain of calls by device time where a card
@@ -10,77 +7,31 @@ runs them: the calls are captured in one CUDA graph and its replay is timed
 by CUDA events, so none of the host's per-call work (checks, allocations,
 the launches themselves) is in the time. A one-call graph's time is
 differenced out, as the JAX function differences out its one-trip loop.
+
+:func:`span` marks a layer of the running program where its callee does
+the work (``with perf.span("gather"): ...``). It costs one check of two
+flags while nothing records. Under ``torch.profiler`` it opens a host
+range ``wg::<name>``; inside an active :class:`Timeline` it
+stamps the card at entry and at exit. A stamp is one launch of a one-thread
+kernel (``csrc/stamp.cu``) that reads the card's nanosecond clock, so a
+span is timed where it runs, also inside a CUDA graph: a graph captured
+inside a Timeline writes its stamps at every replay.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
+import ctypes
 import time
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from .. import kernels
 from .device import DeviceLike, resolve_device
+from .error import check_input
 
 REPLAYS = 5  # timed replays of each of measure_chain's graphs
-
-
-@dataclasses.dataclass
-class Metric:
-    name: str
-    value: float
-    unit: str
-
-
-def _syncer(device: DeviceLike) -> Callable[[], None]:
-    """A function that waits for ``device``'s work (nothing on the CPU)."""
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        return lambda: torch.cuda.synchronize(dev)
-    return lambda: None
-
-
-@dataclasses.dataclass
-class PerformanceMeter:
-    """Collects wall-time samples of a call and derives throughput metrics.
-    On a card (``device``) it waits for the card before and after each
-    timed call, so a sample is the call's whole time there."""
-
-    warmup: int = 2
-    run_count: int = 5
-    max_seconds: Optional[float] = None
-    device: DeviceLike = "cuda"
-    samples: List[float] = dataclasses.field(default_factory=list)
-
-    def run(self, fn: Callable[[], None]) -> "PerformanceMeter":
-        sync = _syncer(self.device)
-        for _ in range(self.warmup):
-            fn()
-        start = time.perf_counter()
-        for _ in range(self.run_count):
-            sync()
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            self.samples.append(time.perf_counter() - t0)
-            if self.max_seconds and time.perf_counter() - start > self.max_seconds:
-                break
-        return self
-
-    @property
-    def mean_time(self) -> float:
-        return sum(self.samples) / max(len(self.samples), 1)
-
-    @property
-    def min_time(self) -> float:
-        return min(self.samples) if self.samples else 0.0
-
-    def bandwidth(self, bytes_per_iter: int, name: str = "bandwidth") -> Metric:
-        return Metric(name, bytes_per_iter / self.mean_time / 1e9, "GB/s")
-
-    def throughput(self, items_per_iter: int, name: str, unit: str) -> Metric:
-        return Metric(name, items_per_iter / self.mean_time, unit)
 
 
 def capture_chain(step_fn: Callable, n_calls: int, *args, pool=None) -> "torch.cuda.CUDAGraph":
@@ -143,36 +94,190 @@ def measure_chain(step_fn: Callable, n_iters: int = 8, *args,
 
 
 # ---------------------------------------------------------------------------
-# Profiling (torch.profiler; the reference has no built-in tracer)
+# Spans and the Timeline of device stamps
 # ---------------------------------------------------------------------------
 
+ENTER, EXIT = "enter", "exit"
 
-@contextlib.contextmanager
-def trace(log_dir: str, device: DeviceLike = "cuda"):
-    """Profile a block with ``torch.profiler`` (the host, and the card when
-    ``device`` is one) and write the trace into ``log_dir`` for TensorBoard
-    (``tensorboard_trace_handler``). Yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+STAMP = kernels.Kernel(
+    "stamp", "stamp.cu", "wg_stamp",
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p],
+    replaces="none: the Timeline's clock on the card (the JAX package times from the host)",
+)
 
-    acts = [ProfilerActivity.CPU]
-    if resolve_device(device).type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
-
-
-def annotate(name: str):
-    """Named region inside a trace (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+_profiler = torch.autograd.profiler  # its _is_profiler_enabled is True while a profiler records
+# a host range of the profiler's function scope: record_function's user scope would also lay
+# the range over the card's events (gpu_user_annotation) and count its gaps as busy time
+_HostRange = torch._C._profiler._RecordFunctionFast
+_NULL = contextlib.nullcontext()  # the one context every span returns while nothing records
+_active: Optional["Timeline"] = None  # the Timeline entered, if any
 
 
-def device_memory_stats(device: DeviceLike = "cuda") -> dict:
-    """``{card: torch.cuda.memory_stats(card)}`` for the card ``device`` names
-    (every card for ``"cuda"`` without an index); ``{}`` when ``device`` is
-    not a card."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return {}
-    resolve_device(dev)
-    cards = range(torch.cuda.device_count()) if dev.index is None else [dev.index]
-    return {f"cuda:{i}": torch.cuda.memory_stats(i) for i in cards}
+def active_timeline() -> Optional["Timeline"]:
+    """The :class:`Timeline` entered (``with tl:``), or None."""
+    return _active
+
+
+def span(name: str):
+    """A context that marks the layer ``name`` of the running program.
+
+    While no profiler records and no :class:`Timeline` is active it is one
+    shared null context. Under a profiler it opens the host range
+    ``wg::<name>`` (on the host only: no range on the card); inside an active
+    Timeline it stamps the card (or, on the CPU, the host clock) at entry
+    and at exit."""
+    if _active is None and not _profiler._is_profiler_enabled:
+        return _NULL
+    return _Span(name, _active)
+
+
+class _Span:
+    __slots__ = ("name", "tl", "rf")
+
+    def __init__(self, name: str, tl: Optional["Timeline"]):
+        self.name, self.tl, self.rf = name, tl, None
+
+    def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            self.rf = _HostRange("wg::" + self.name)
+            self.rf.__enter__()
+        if self.tl is not None:
+            self.tl.stamp(self.name, ENTER)
+        return self
+
+    def __exit__(self, *exc):
+        if self.tl is not None:
+            self.tl.stamp(self.name, EXIT)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def _stamp_plain(buf: torch.Tensor, capacity: int, tag: int) -> None:
+    """The stamp kernel's work on the CPU: the host clock as the device's."""
+    ns = time.perf_counter_ns()
+    slot = int(buf[0, 0])
+    buf[0, 0] = slot + 1
+    if slot < capacity:
+        buf[slot + 1, 0] = tag
+        buf[slot + 1, 1] = ns
+
+
+class SpanTime(NamedTuple):
+    """One span as a :class:`Timeline` recorded it: device ns at entry and
+    exit, host ``perf_counter_ns`` at each (None where a graph's replay
+    wrote the stamp) and its depth among the spans open at its entry."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    host_start_ns: Optional[int]
+    host_end_ns: Optional[int]
+    depth: int
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+def pair_spans(rows: Sequence[Tuple[str, str, int, Optional[int]]]) -> List[SpanTime]:
+    """Rows ``(name, ENTER or EXIT, device ns, host ns or None)`` in the
+    ring's order (:meth:`Timeline.read`, or the same rows on another clock)
+    paired into spans, in the order they were entered: each exit closes the
+    latest open span of its name. Spans left open are dropped."""
+    out: List[Optional[SpanTime]] = []
+    stack: List[Tuple[str, int, int, Optional[int]]] = []  # (name, index in out, ns, host)
+    for name, phase, ns, host in rows:
+        if phase == ENTER:
+            stack.append((name, len(out), ns, host))
+            out.append(None)
+            continue
+        for k in range(len(stack) - 1, -1, -1):
+            if stack[k][0] == name:
+                _, at, ns0, host0 = stack.pop(k)
+                out[at] = SpanTime(name, ns0, ns, host0, host, k)
+                break
+    return [s for s in out if s is not None]
+
+
+class Timeline:
+    """A ring of device stamps that :func:`span` writes while the Timeline
+    is entered (``with tl: ...``).
+
+    Each stamp writes ``(tag, ns)`` at a cursor that the card advances: the
+    tag names the span, whether it entered or left, and the host's own
+    ``perf_counter_ns`` at that moment by its index in :attr:`host_ns` (no
+    index for a stamp recorded into a CUDA graph: each replay writes one
+    with no host clock). A full ring writes nothing more and counts what it
+    dropped (:attr:`dropped`, after :meth:`read`). On the CPU the device
+    clock is ``perf_counter_ns``. A CUDA graph captured inside a Timeline
+    writes into its ring at every replay, so it must be replayed only
+    inside it (``train.train_epoch`` captures again when the active
+    Timeline changes)."""
+
+    def __init__(self, capacity: int = 1 << 16, device: DeviceLike = "cuda"):
+        check_input(capacity > 0, f"capacity must be positive, got {capacity}")
+        self.device = resolve_device(device)
+        self.capacity = int(capacity)
+        # row 0 holds the cursor; the ring is rows 1..capacity
+        self.buf = torch.zeros((self.capacity + 1, 2), dtype=torch.int64, device=self.device)
+        self.names: List[str] = []
+        self._codes: Dict[str, int] = {}
+        self.host_ns: List[int] = []
+        self.dropped = 0
+        self._outer: Optional[Timeline] = None
+
+    def __enter__(self) -> "Timeline":
+        global _active
+        check_input(_active is not self, "this Timeline is active already")
+        self._outer, _active = _active, self
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        global _active
+        _active, self._outer = self._outer, None
+        return False
+
+    def stamp(self, name: str, phase: str) -> None:
+        """Stamp ``name``'s entry (``ENTER``) or exit (``EXIT``) on the
+        current stream of the Timeline's device."""
+        code = self._codes.get(name)
+        if code is None:
+            code = self._codes[name] = len(self.names)
+            self.names.append(name)
+        tag = 2 * code + (phase == EXIT)
+        cuda = self.device.type == "cuda"
+        if not (cuda and torch.cuda.is_current_stream_capturing()):
+            self.host_ns.append(time.perf_counter_ns())
+            tag |= len(self.host_ns) << 32  # the host clock's index, plus one
+        if cuda:
+            STAMP(self.buf.data_ptr(), self.capacity, tag, kernels.cuda_stream(self.device))
+        else:
+            _stamp_plain(self.buf, self.capacity, tag)
+
+    def read(self) -> List[Tuple[str, str, int, Optional[int]]]:
+        """Every stamp written so far, in the ring's order: ``(name, ENTER
+        or EXIT, device ns, host ns or None)``. Copies the ring back once
+        (waiting for the card) and sets :attr:`dropped`."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        buf = self.buf.cpu()
+        asked = int(buf[0, 0])
+        self.dropped = max(asked - self.capacity, 0)
+        rows = []
+        for tag, ns in buf[1:1 + min(asked, self.capacity)].tolist():
+            code, host = tag & 0xFFFFFFFF, tag >> 32
+            rows.append((self.names[code >> 1], EXIT if code & 1 else ENTER, ns,
+                         self.host_ns[host - 1] if host else None))
+        return rows
+
+    def spans(self) -> List[SpanTime]:
+        """:meth:`read`'s stamps paired into spans (:func:`pair_spans`)."""
+        return pair_spans(self.read())
+
+    def durations(self) -> Dict[str, List[float]]:
+        """Device ms of every closed span, by name, in the order entered."""
+        out: Dict[str, List[float]] = {}
+        for s in self.spans():
+            out.setdefault(s.name, []).append(s.ms)
+        return out
