@@ -227,7 +227,9 @@ the examples under the launcher and the multichip dry run. In order:
     f32 device-memory embedding as the features) with a 2-layer SAGE and a
     2-layer GCN: for each, the counts from 0, ``eval_full_graph`` on
     FG_CENTERS centres, FG_STEPS timed ``full_graph_value_and_grad`` runs,
-    failing unless A and G (both routes) were launched;
+    failing unless A and G (both routes) were launched and G aggregated
+    the widths the convs give it (SAGE's 256 -> 16 layer projects first:
+    16 columns, as GCN's);
 17. ``[store]``: the sharded row store (``ShardedTable``) at the JAX
     benches' shapes, a 4,000,000 x 256 table of random rows: with the counts
     from 0, ``gather(local_kernel="sorted")`` on ``bench_gather_sorted``'s
@@ -2843,6 +2845,17 @@ def check_model_calls(mt, a_calls, g_calls):
     return checks
 
 
+def fg_g_widths(mt, cfg):
+    """The widths of kernel G's calls in an evaluation and one forward +
+    backward of a ``FullGraphConfig`` model: a GCN layer aggregates its
+    output; a SAGE layer its input, or its output rounded up to 4 where that
+    is narrower (``SAGEConv._project_first``)."""
+    dims = [cfg.dim] + [cfg.hidden] * (cfg.num_layers - 1) + [cfg.num_classes]
+    fwd = [dout if mt == "gcn" else min(-(-dout // 4) * 4, din)
+           for din, dout in zip(dims, dims[1:])]
+    return fwd + fwd + fwd[::-1]
+
+
 def fg_model_phase():
     """``FullGraphConfig()``: the bench graph, a device-memory Embedding of
     [2^20, 256] f32 features, a 2-layer SAGE (mean) and a 2-layer GCN. For
@@ -2873,6 +2886,9 @@ def fg_model_phase():
             torch.cuda.synchronize()
         require(len(a_calls) == 1 and len(g_calls) == 3 * cfg.num_layers,
                 f"[fg_model] {mt}: {len(a_calls)} A and {len(g_calls)} G calls")
+        widths = [args[2].shape[1] for args, _ in g_calls]
+        require(widths == fg_g_widths(mt, cfg),
+                f"[fg_model] {mt}: G over widths {widths}, not {fg_g_widths(mt, cfg)}")
         checks = check_model_calls(mt, a_calls, g_calls)
         log(f"[fg_model] {mt}: A over all {cfg.n_nodes} ids bit-equal to its plain version; "
             f"G calls of one evaluation and one forward + backward: " + json.dumps(checks))

@@ -34,11 +34,13 @@ from wholegraph_tpu_torch import kernels
 from wholegraph_tpu_torch.embedding import SGD, Embedding, HostEmbedding, LazyAdam
 from wholegraph_tpu_torch.graph import GraphStructure
 from wholegraph_tpu_torch.models import HomoGNN
+from wholegraph_tpu_torch.models.conv import SAGEConv, _fg_spmm
 from wholegraph_tpu_torch.ops import gather_kernels as G
 from wholegraph_tpu_torch.ops import host_kernels as H
 from wholegraph_tpu_torch.ops import optim_kernels as L
 from wholegraph_tpu_torch.ops import sampling as SM
 from wholegraph_tpu_torch.ops import spmm_kernels as S
+from wholegraph_tpu_torch.utils import perf
 from wholegraph_tpu_torch.utils.error import CudaError
 
 pytestmark = pytest.mark.cuda
@@ -974,6 +976,54 @@ def test_full_graph_models_on_card_match_cpu(dev):
         torch.testing.assert_close(dxa.cpu(), dxb, rtol=1e-5, atol=1e-5)
         for k in gb:
             torch.testing.assert_close(ga[k].cpu(), gb[k], rtol=1e-4, atol=1e-5, msg=k)
+
+
+@pytest.mark.parametrize("reduce", ["mean", "sum"])
+@pytest.mark.parametrize("graph", ["clustered", "uniform"])
+def test_csr_spmm_over_a_projection_view_is_its_copy(dev, reduce, graph):
+    """G over ``y[:, :48]`` of a [N, 96] f32 projection (row stride 96: the
+    self and neighbour halves of SAGE's last layer in one GEMM's output) is
+    bit-equal to G over its contiguous copy, staged (clustered) or from
+    device memory (uniform)."""
+    if graph == "uniform":
+        row_ptr, col, _ = _csr(n=2000, n_src=2000)
+    else:
+        row_ptr, col = _clustered_csr()
+    n = row_ptr.shape[0] - 1
+    y = torch.randn(n, 96, generator=_gen(40)).to(dev)
+    view = y[:, :48]
+    assert view.stride() == (96, 1)
+    args = (row_ptr.to(dev), col.to(dev))
+    out = S.csr_spmm(*args, view, reduce=reduce)
+    assert torch.equal(_bits(out), _bits(S.csr_spmm(*args, view.contiguous(), reduce=reduce)))
+
+
+def test_sage_last_layer_projects_first_on_card_as_the_concat_route(dev):
+    """The benchmark's last SAGE layer (256 -> 47, mean) over a small
+    clustered graph: the project-first route (one ``sage.project_first``
+    span, G over 48 columns) against ``proj(cat[x, mean(x)])`` on the card
+    at 2e-4, forward and the gradients of x and ``proj``."""
+    row_ptr, col = _clustered_csr(n=3000)
+    n = row_ptr.shape[0] - 1
+    fg = GraphStructure(row_ptr.to(dev), col.to(dev), n).to_full_graph(windowed=True)
+    conv = SAGEConv(256, 47, device=dev)
+    with torch.no_grad():
+        conv.proj.bias.copy_(torch.randn(47, generator=_gen(41)).to(dev))
+    x = torch.relu(torch.randn(n, 256, generator=_gen(42))).to(dev).requires_grad_()
+    ct = torch.randn(n, 47, generator=_gen(43)).to(dev)
+    with perf.Timeline(device=dev) as tl:
+        out = conv(x, fg)
+    assert [s.name for s in tl.spans()].count("sage.project_first") == 1
+    out.backward(ct)
+    got = [t.grad.clone() for t in (x, conv.proj.weight, conv.proj.bias)]
+    for t in (x, conv.proj.weight, conv.proj.bias):
+        t.grad = None
+    want = conv.proj(torch.cat([x, _fg_spmm(fg, x, "mean")], dim=-1))
+    want.backward(ct)
+    torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+    for name, g, t in zip(("x", "proj.weight", "proj.bias"), got,
+                          (x, conv.proj.weight, conv.proj.bias)):
+        torch.testing.assert_close(g, t.grad, rtol=2e-4, atol=2e-4, msg=name)
 
 
 # ---------------------------------------------------------------------------

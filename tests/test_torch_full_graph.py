@@ -16,6 +16,8 @@ Tolerances:
   attention weights go through ``split2`` (about 2^-16 relative, quirk
   R3), at 3e-4 forward and 1e-3 gradients (GAT_FWD / GAT_GRAD).
 - tile plans, graph attributes and ``clustered_csr``: exact.
+- SAGE's project-first route against its concat route computed plainly:
+  WIN_FWD forward, WIN_GRAD gradients (products and sums in another order).
 """
 
 import dataclasses
@@ -37,8 +39,10 @@ from wholegraph_tpu.ops import spmm_pallas as jp
 import wholegraph_tpu_torch as wt
 from wholegraph_tpu_torch.graph import GraphStructure
 from wholegraph_tpu_torch.models import FullGraph, GATConv, HomoGNN, params_from_jax
+from wholegraph_tpu_torch.models.conv import SAGEConv
 from wholegraph_tpu_torch.ops import spmm as ts
 from wholegraph_tpu_torch.ops import spmm_kernels as tk
+from wholegraph_tpu_torch.utils import perf
 from wholegraph_tpu_torch.utils.error import InvalidInput
 
 torch.set_num_threads(1)
@@ -431,3 +435,70 @@ def test_full_graph_config_defaults_are_the_bench_shapes():
     st = wt.build_full_graph(small, device="cpu", seed=3)
     assert st.fg.num_nodes == 300 and st.fg.window is not None
     assert st.embedding.table.shape == (300, 16) and st.labels.shape == (300,)
+
+
+# ---------------------------------------------------------------------------
+# SAGE on a full graph: project first where the layer narrows
+# ---------------------------------------------------------------------------
+
+
+def _project_first_spans(fn):
+    """``fn()``'s result and its count of ``sage.project_first`` spans."""
+    with perf.Timeline(device="cpu") as tl:
+        out = fn()
+    return out, sum(s.name == "sage.project_first" for s in tl.spans())
+
+
+@pytest.mark.parametrize("aggregator", ["mean", "sum", "max"])
+@pytest.mark.parametrize("din,dout", [(100, 47), (64, 8), (32, 32), (16, 40)])
+def test_sage_full_graph_routes_match_the_concat_route(din, dout, aggregator):
+    """SAGEConv on a FullGraph against ``proj(cat[x, agg(x)])`` with the
+    COO aggregation of plain PyTorch: forward and the gradients of x,
+    ``proj.weight`` and ``proj.bias``. It projects first (one span) where
+    the aggregation is a sum or mean and ``round_up(dout, 4) < din``; empty
+    rows give zeros there (the max, whose empty rows are -inf, runs on a
+    graph without them)."""
+    n = 300
+    rp, col, rs = _clustered(n, 40, seed=11, lo=0 if aggregator != "max" else 1, hi=9)
+    fg = GraphStructure(_t(rp), _t(col), n).to_full_graph(windowed=True)
+    conv = SAGEConv(din, dout, aggregator=aggregator, device="cpu")
+    with torch.no_grad():
+        conv.proj.bias.copy_(torch.from_numpy(rs.randn(dout).astype(np.float32)))
+    x = _t(rs.randn(n, din).astype(np.float32)).requires_grad_()
+    ct = _t(rs.randn(n, dout).astype(np.float32))
+    out, spans = _project_first_spans(lambda: conv(x, fg))
+    assert out.shape == (n, dout)
+    assert spans == int(aggregator != "max" and -(-dout // 4) * 4 < din)
+    out.backward(ct)
+    got = [t.grad.clone() for t in (x, conv.proj.weight, conv.proj.bias)]
+
+    for t in (x, conv.proj.weight, conv.proj.bias):
+        t.grad = None
+    xn = ts.spmm(fg.edge_src, fg.edge_dst, x, n, aggregator)
+    want = conv.proj(torch.cat([x, xn], dim=-1))
+    want.backward(ct)
+    np.testing.assert_allclose(out.detach().numpy(), want.detach().numpy(), **WIN_FWD)
+    for name, g, t in zip(("x", "proj.weight", "proj.bias"), got,
+                          (x, conv.proj.weight, conv.proj.bias)):
+        np.testing.assert_allclose(g.numpy(), t.grad.numpy(), err_msg=name, **WIN_GRAD)
+
+
+def test_sage_stack_projects_first_once_in_a_full_graph_pass():
+    """The benchmark's SAGE stack, 100 -> 256 -> 256 -> 47 (mean): a
+    full-graph forward has one ``sage.project_first`` span (the last layer)
+    and three ``fg_spmm``; a sampled forward has none."""
+    n = 400
+    rp, col, rs = _clustered(n, 60, seed=12, lo=1, hi=9)
+    tg = GraphStructure(_t(rp), _t(col), n)
+    model = HomoGNN(100, 256, 47, num_layers=3, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    feats = _t(rs.randn(n, 100).astype(np.float32))
+    with perf.Timeline(device="cpu") as tl, torch.no_grad():
+        model(feats, graph=tg.to_full_graph(windowed=True))
+    names = [s.name for s in tl.spans()]
+    assert names.count("sage.project_first") == 1 and names.count("fg_spmm") == 3
+    ml = tg.multilayer_sample(torch.arange(64, dtype=torch.int32), (5, 4, 3), seed=0)
+    x = feats[ml.unique_gids.long().clamp(max=n - 1)] * ml.unique_mask[:, None]
+    with torch.no_grad():
+        _, spans = _project_first_spans(lambda: model(x, ml))
+    assert spans == 0

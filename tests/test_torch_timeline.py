@@ -134,7 +134,10 @@ def test_full_graph_pass_spans_each_layer_and_its_spmm():
     spans = tl.spans()
     L = fs.model.num_layers
     assert [s.name for s in spans if s.depth == 0] == ["conv.sage"] * L
-    assert [s.name for s in spans if s.depth == 1] == ["fg_spmm"] * L
+    # the last layer (8 -> 3) projects first, its fg_spmm inside that span
+    assert [s.name for s in spans if s.depth == 1] == ["fg_spmm"] * (L - 1) + [
+        "sage.project_first"]
+    assert [s.depth for s in spans if s.name == "fg_spmm"] == [1] * (L - 1) + [2]
 
 
 @pytest.mark.parametrize("capacity", [1, 3, 8])

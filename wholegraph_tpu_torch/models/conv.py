@@ -183,7 +183,11 @@ class SAGEConv(nn.Module):
     On a :class:`HopSubgraph`, ``x`` holds the next level's unique nodes and
     the block's targets are its first ``g.num_targets`` rows; on a
     :class:`FullGraph`, ``x`` holds every node. The concat order matches the
-    JAX package's so that a bridged flax ``proj`` kernel loads 1:1."""
+    JAX package's so that a bridged flax ``proj`` kernel loads 1:1.
+
+    On a :class:`FullGraph` with a sum or mean aggregator, a layer that
+    narrows (``out_dim`` rounded up to 4 below ``in_dim``) projects before
+    it aggregates: :meth:`_project_first`."""
 
     def __init__(self, in_dim: int, out_dim: int, aggregator: str = "mean",
                  bias: bool = True, device=None, dtype=None):
@@ -196,8 +200,25 @@ class SAGEConv(nn.Module):
             xs = x[: g.num_targets]
             xn = _hop_reduce(x, g, self.aggregator)
         else:
+            w = -(-self.proj.out_features // 4) * 4
+            if self.aggregator in ("sum", "mean") and w < x.shape[1]:
+                return self._project_first(x, g, w)
             xs, xn = x, _fg_spmm(g, x, self.aggregator)
         return self.proj(torch.cat([xs, xn], dim=-1))
+
+    def _project_first(self, x: torch.Tensor, g: FullGraph, w: int) -> torch.Tensor:
+        """``x @ W_s + agg(x @ W_n) + b``, which equals ``proj(cat[x,
+        agg(x)])`` because a sum or mean over neighbours is linear (DGL's
+        ``lin_before_mp``): kernel G reads rows of ``w`` columns, not
+        ``in_dim``. ``W_n`` takes zero rows up to ``w``, so that G's rows are
+        whole 16-byte vectors; the zero columns are cut off after it. Its
+        span is ``sage.project_first``."""
+        din, dout = x.shape[1], self.proj.out_features
+        W = self.proj.weight
+        with perf.span("sage.project_first"):
+            w_n = torch.cat([W[:, din:], W.new_zeros(w - dout, din)])  # [w, din]
+            agg = _fg_spmm(g, F.linear(x, w_n), self.aggregator)
+            return F.linear(x, W[:, :din], self.proj.bias) + agg[:, :dout]
 
 
 class GCNConv(nn.Module):
