@@ -17,7 +17,6 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from . import inputs as I
 from .reference.steps import logit_gap
 
 
@@ -38,16 +37,17 @@ def wide_rows(program: torch.Tensor, reference: torch.Tensor, share: float = 1e-
     return {"rows": int(rows.numel()), "of": int(gap.numel()), "first": rows[:5].tolist()}
 
 
-def reference_numbers(mode: ModuleType, cfg: Dict, mix: Dict, seed: int, check: Dict, dev,
-                      precision: str = "float32", **fault) -> Dict:
+def reference_numbers(mode: ModuleType, build: ModuleType, cfg: Dict, mix: Dict, seed: int,
+                      check: Dict, dev, precision: str = "float32", **fault) -> Dict:
     """The numbers of ``check`` (what the timed path produced) against the
     reference, with TF32 off whatever the caller set, from inputs it makes
-    again from the seed. ``precision`` and ``fault`` change the reference
-    (the control's readings)."""
+    again from the seed by the cell's build (its ``make_inputs``).
+    ``precision`` and ``fault`` change the reference (the control's
+    readings)."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        ref = I.make_all(cfg, seed, dev)
+        ref = build.make_inputs(cfg, seed, dev)
         return mode.compare(check, mode.reference_record(cfg, mix, seed, ref, check, precision,
                                                          **fault))
     finally:

@@ -21,14 +21,13 @@ import time
 
 import torch
 
-from . import inputs as I, program, spec
+from . import spec
 from .run import Run, cache_dirs
 
 
 def program_record(cell, seed: int, dev) -> dict:
     run = Run(cell, seed, dev)
-    run.inputs = I.make_all(run.cfg, run.seed, dev)
-    run.built = program.Built(run.cfg, cell.mix, run.inputs, dev)
+    run.make()
     mode = cell.mode().Runner(run)
     mode.setup()
     rec = mode.control_record()
@@ -48,17 +47,17 @@ def _reading(found: dict) -> dict:
 
 
 def readings(cell, seed: int, with_control: bool, dev) -> dict:
-    mod = cell.mode()
+    mod, make = cell.mode(), cell.build().make_inputs
     cfg, mix = cell.config, cell.mix
     t0 = time.perf_counter()
     prog = program_record(cell, seed, dev)
-    f32 = mod.reference_record(cfg, mix, seed, I.make_all(cfg, seed, dev), prog)
+    f32 = mod.reference_record(cfg, mix, seed, make(cfg, seed, dev), prog)
     out = {"seed": seed, "program": _reading(mod.compare(prog, f32))}
     if with_control:
-        tf32 = mod.reference_record(cfg, mix, seed, I.make_all(cfg, seed, dev), prog, "tf32")
+        tf32 = mod.reference_record(cfg, mix, seed, make(cfg, seed, dev), prog, "tf32")
         out["control_tf32"] = _reading(mod.compare(tf32, f32))
         for name, fault in mod.FAULTS.items():
-            bad = mod.reference_record(cfg, mix, seed, I.make_all(cfg, seed, dev), prog, **fault)
+            bad = mod.reference_record(cfg, mix, seed, make(cfg, seed, dev), prog, **fault)
             out["fault_" + name] = _reading(mod.compare(bad, f32))
     out["seconds"] = time.perf_counter() - t0
     return out

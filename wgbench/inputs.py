@@ -1,5 +1,7 @@
-"""What a run is given, made on the device from ``--seed``: the graph, the
-node features, labels and splits, and the model's weights.
+"""What a run of the ``homogeneous`` build is given (:func:`make_all`, its
+``make_inputs``), made on the device from ``--seed``: the graph, the node
+features, labels and splits, and the model's weights; and the seeds of
+every stream of draws, which any build may use.
 
 The benchmark makes these and hands the same to the port and to the plain
 reference; each is drawn from a generator of its own, so any one of them

@@ -1,5 +1,5 @@
-"""What a per-layer reader is handed: the run, its mode and window, the
-profiled window, and helpers to time a call by device time at the cell's
+"""What a per-layer reader is handed: the run, its build, mode and window,
+the profiled window, and helpers to time a call by device time at the cell's
 own shapes and to count a batch's valid work with the reference's sampler.
 
 A reader ``metrics/<name>.py`` defines ``read(ctx)`` and returns a number,
@@ -23,7 +23,7 @@ class ReadContext:
         self.run, self.mode, self.window = run, mode, window
         self.cfg, self.mix = run.cfg, run.mix
         self.mode_name = run.mix["mode"]
-        self.built = run.built
+        self.build, self.built = run.build, run.built
         self.profile: Optional[Dict] = None
         self.kernels_by_graph: Optional[int] = None
         self.kernels_by_profiler: Optional[float] = None
@@ -87,4 +87,4 @@ class ReadContext:
         return self.window["seconds"] / self.window["attempted"]
 
     def close(self) -> None:
-        self.run = self.mode = self.built = self._sample = None
+        self.run = self.mode = self.build = self.built = self._sample = None

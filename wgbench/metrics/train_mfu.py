@@ -1,18 +1,13 @@
 """The whole training step's share of the chip's float32 peak: the valid
-operations of a step (the representative batch's, from the reference's
-sampler) over the window's seconds a step, in %."""
+operations of the representative step, as the cell's build counts them
+(its ``train_flops``), over the window's seconds a step, in %; nothing
+where the build does not count the cell's mode."""
 
-from wgbench.inputs import layer_dims, layer_heads
 from wgbench.metrics import counts as C
 
 
 def read(ctx):
-    if ctx.mode_name != "train_epoch":
+    flops = ctx.build.train_flops(ctx)
+    if flops is None:
         return None
-    dims, c = layer_dims(ctx.cfg), ctx.counts()
-    grad_in = bool(ctx.cfg["train_embedding"])
-    if ctx.cfg["model"] == "sage":
-        flops = C.sage_flops(c, dims, backward=True, input_grad=grad_in)
-    else:
-        flops = C.gat_flops(c, dims, layer_heads(ctx.cfg), backward=True, input_grad=grad_in)
     return 100.0 * flops / ctx.seconds_per_unit() / C.F32_FLOPS_PER_S

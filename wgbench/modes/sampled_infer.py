@@ -6,7 +6,8 @@ time; batch ``i``'s sampler seed is the traffic's.
 The logits of ``compare_batches`` batches, drawn from the seed among the
 first ``compare_from_first``, are kept and compared: ``logit_gap``, the
 widest gap between a logit and the reference's, over the reference logits'
-root mean square, over the kept batches.
+root mean square, over the kept batches. A compared batch that the window
+did not reach is late, not wrong: it runs after the window has closed.
 """
 
 from __future__ import annotations
@@ -99,6 +100,9 @@ class Runner(Mode):
     def window(self, seconds: float) -> Dict:
         self.next = 0
         out = self.run_batches(None, seconds, events=self.dev.type == "cuda")
+        late = max(self.compare) + 1 - self.next
+        if late > 0:  # compared batches the window did not reach: run after it closes, untimed
+            self.run_batches(late, None, events=False)
         self.check = {"saved": self.saved}
         return out
 

@@ -1,5 +1,23 @@
-"""The system under test: the port's objects built from the benchmark's
-inputs, and the common parts of the runners of the traffic modes.
+"""The system under test: how a cell finds its build and its mode, and the
+common parts of the runners of the traffic modes.
+
+A build is a file of its own, ``builds/<build>.py``, found by the name a
+configuration gives under ``build`` (:func:`load_build`). It defines
+
+- ``make_inputs(cfg, seed, device)``: every input of a run, made on
+  ``device`` from the seed, the same again for the same seed; a dict that
+  holds at least ``labels`` (a label a node) and ``splits`` (node ids by
+  split name), which :class:`Mode` and the traffic read, and whatever else
+  the build's objects, modes and reference need;
+- ``Built(cfg, mix, inputs, device)``: the port's objects made from the
+  inputs, with ``times`` (seconds by part of the build, for the set-up's
+  line) and ``leaves()`` (the trained parameters under the reference's
+  names);
+- ``train_flops(ctx)`` and ``infer_flops(ctx)``: the valid operations of
+  the representative training step, or of the inference batch or pass, of
+  the cell that a reader's ``ctx`` holds, or None where the build does not
+  count the cell's mode;
+- ``tiny(cfg)``: the configuration shrunk for runs on the CPU in tests.
 
 A mode is a file of its own, ``modes/<mode>.py``, found by the name a mix
 gives under ``mode`` (:func:`load_mode`). It defines
@@ -36,10 +54,10 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def load_mode(name: str, here: str = HERE) -> ModuleType:
-    """The module of ``modes/<name>.py`` under ``here``, loaded once a path."""
-    path = os.path.join(here, "modes", f"{name}.py")
-    key = "wgbench_mode_" + name + "_" + format(abs(hash(path)), "x")
+def _load(sub: str, name: str, here: str) -> ModuleType:
+    """The module of ``<sub>/<name>.py`` under ``here``, loaded once a path."""
+    path = os.path.join(here, sub, f"{name}.py")
+    key = f"wgbench_{sub}_{name}_" + format(abs(hash(path)), "x")
     if key not in sys.modules:
         spec = importlib.util.spec_from_file_location(key, path)
         mod = importlib.util.module_from_spec(spec)
@@ -48,66 +66,20 @@ def load_mode(name: str, here: str = HERE) -> ModuleType:
     return sys.modules[key]
 
 
-class Built:
-    """The port's graph, table, model, dense optimizer and training state."""
+def load_mode(name: str, here: str = HERE) -> ModuleType:
+    """The module of ``modes/<name>.py`` under ``here``."""
+    return _load("modes", name, here)
 
-    def __init__(self, cfg: Dict, mix: Dict, inputs: Dict, device: torch.device):
-        marks = [time.perf_counter()]
-        from wholegraph_tpu_torch.embedding import Embedding, create_optimizer
-        from wholegraph_tpu_torch.graph import GraphStructure
-        from wholegraph_tpu_torch.models import HomoGNN
-        from wholegraph_tpu_torch.train import SageTrainConfig, SageTrainState
 
-        self.cfg, self.mix, self.device = cfg, mix, device
-        n, dim = int(cfg["nodes"]), int(cfg["feat_dim"])
-        row_ptr, col = inputs["row_ptr"], inputs["col"]
-        self.max_degree = int((row_ptr[1:] - row_ptr[:-1]).max())
-        marks.append(time.perf_counter())
-        self.graph = GraphStructure(row_ptr, col, n, max_degree=self.max_degree)
-        opt = create_optimizer(cfg["embedding_optimizer"])
-        self.emb = Embedding(n, dim, opt, torch.float32, device, table=inputs["features"])
-        marks.append(time.perf_counter())
-        heads = int(cfg.get("heads", 1))
-        self.model = HomoGNN(dim, int(cfg["hidden"]), int(cfg["num_classes"]),
-                             num_layers=int(cfg["num_layers"]), dropout=float(cfg["dropout"]),
-                             aggregator="mean", model_type=cfg["model"], num_heads=heads,
-                             device=device)
-        with torch.no_grad():
-            for conv, wt in zip(self.model.convs, inputs["weights"]):
-                conv.proj.weight.copy_(wt["w"].t())
-                if cfg["model"] == "sage":
-                    conv.proj.bias.copy_(wt["b"])
-                else:
-                    conv.attn_src.copy_(wt["attn_src"])
-                    conv.attn_dst.copy_(wt["attn_dst"])
-        marks.append(time.perf_counter())
-        self.dense_opt = torch.optim.Adam(self.model.parameters(), lr=float(cfg["lr"]),
-                                          capturable=device.type == "cuda")
-        elr = cfg.get("embedding_lr")
-        tcfg = SageTrainConfig(
-            n_nodes=n, dim=dim, hidden=int(cfg["hidden"]), num_classes=int(cfg["num_classes"]),
-            batch=int(mix["batch"]) if "batch" in mix else 1, fanouts=tuple(cfg["fanouts"]),
-            lr=float(cfg["lr"]), model_type=cfg["model"], num_heads=heads,
-            train_embedding=bool(cfg["train_embedding"]),
-            embedding_lr=None if elr is None else float(elr),
-            embedding_optimizer=cfg["embedding_optimizer"])
-        self.state = SageTrainState(tcfg, self.graph, self.emb, self.model, self.dense_opt,
-                                    inputs["labels"])
-        marks.append(time.perf_counter())
-        self.times = dict(zip(("imports", "graph and table", "model", "optimizer"),
-                              (b - a for a, b in zip(marks, marks[1:]))))
+def load_build(name: str, here: str = HERE) -> ModuleType:
+    """The module of ``builds/<name>.py`` under ``here``."""
+    return _load("builds", name, here)
 
-    def leaves(self) -> Dict[str, torch.Tensor]:
-        """The model's parameters under the reference's leaf names."""
-        out = {}
-        for i, conv in enumerate(self.model.convs):
-            out[f"{i}.w"] = conv.proj.weight
-            if self.cfg["model"] == "sage":
-                out[f"{i}.b"] = conv.proj.bias
-            else:
-                out[f"{i}.attn_src"] = conv.attn_src
-                out[f"{i}.attn_dst"] = conv.attn_dst
-        return out
+
+def Built(cfg: Dict, mix: Dict, inputs: Dict, device):
+    """The port's objects of the build that ``cfg`` names (``builds/`` of
+    this package), made from ``inputs``."""
+    return load_build(cfg["build"]).Built(cfg, mix, inputs, device)
 
 
 class Mode:
@@ -120,7 +92,7 @@ class Mode:
 
     def __init__(self, run):
         self.run = run
-        self.built: Built = run.built
+        self.built = run.built
         self.dev: torch.device = run.device
         split = run.mix.get("split")
         self.traffic = (Traffic(run.mix, run.seed, run.inputs["splits"][split],

@@ -3,7 +3,8 @@
   python3 -m wgbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Set-up (from the process's start to the window's start) makes the inputs
-on the card from the seed, builds the port's objects, runs the mode's
+on the card from the seed and builds the port's objects, both by the build
+the cell's configuration names (``builds/<build>.py``), runs the mode's
 checked first steps and warms up every shape the window uses. The window
 then measures for ``--seconds``. With ``--trace 1`` a profiled window and
 the per-layer readers follow. Then the port's state is freed and the plain
@@ -62,13 +63,19 @@ def card_state() -> str:
 
 
 class Run:
-    """One run of one cell on one device."""
+    """One run of one cell on one device, and the build the cell names."""
 
     def __init__(self, cell, seed: int, device):
         import torch
         self.cell, self.cfg, self.mix = cell, cell.config, cell.mix
+        self.build = cell.build()
         self.seed = int(seed)
         self.device = torch.device(device)
+
+    def make(self) -> None:
+        """The inputs, then the port's objects, by the cell's build."""
+        self.inputs = self.build.make_inputs(self.cfg, self.seed, self.device)
+        self.built = self.build.Built(self.cfg, self.mix, self.inputs, self.device)
 
 
 def _say(msg: str) -> None:
@@ -82,7 +89,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     versions, and device metrics are left out."""
     import torch
 
-    from . import check, inputs as I, program
+    from . import check
     from .metrics.context import ReadContext
 
     t0 = T0 if t0 is None else t0
@@ -94,11 +101,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
         torch.cuda.init()
     cfg, mix = run.cfg, run.mix
     marks = [("start", time.perf_counter())]
-    run.inputs = I.make_all(cfg, run.seed, dev)
+    run.inputs = run.build.make_inputs(cfg, run.seed, dev)
     if cuda:
         torch.cuda.synchronize(dev)
     marks.append(("inputs", time.perf_counter()))
-    run.built = program.Built(cfg, mix, run.inputs, dev)
+    run.built = run.build.Built(cfg, mix, run.inputs, dev)
     mode_mod = cell.mode()
     mode = mode_mod.Runner(run)
     marks.append(("build", time.perf_counter()))
@@ -147,7 +154,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    ref = check.reference_numbers(mode_mod, cfg, mix, run.seed, chk, dev)
+    ref = check.reference_numbers(mode_mod, run.build, cfg, mix, run.seed, chk, dev)
     correct, checks, others = check.judge(ref["numbers"], cell.limits["limits"])
     result["correct"] = bool(correct)
     result["attempted"] = int(win["attempted"])

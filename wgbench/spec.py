@@ -2,7 +2,10 @@
 names cells, configurations, traffic mixes and metrics; each part is a
 file of its own under ``wgbench/``:
 
-- configuration ``<c>``: ``configs/<c>.json``;
+- configuration ``<c>``: ``configs/<c>.json``, whose required ``build``
+  names a build ``<b>``: ``builds/<b>.py``, which makes the cell's inputs
+  from the seed, builds the port's objects and counts the whole step's
+  operations (:mod:`wgbench.program`);
 - traffic mix ``<t>``: ``workloads/<t>.json``, whose ``mode`` names a
   mode ``<m>``: ``modes/<m>.py``, its runner, reference and comparison
   (:mod:`wgbench.program`);
@@ -47,6 +50,10 @@ class Cell:
         self.name = name
         self.here = here
         self.config = _json(here, "configs", self.entry["config"])
+        if "build" not in self.config:
+            raise ValueError(f"configs/{self.entry['config']}.json has no 'build' key: it "
+                             f"must name the build (builds/<build>.py) that makes its inputs "
+                             f"and objects")
         self.mix = _json(here, "workloads", self.entry["traffic"])
         self.limits = _json(here, "limits", name)
         self.end_to_end = [m for m in bench["end_to_end"]
@@ -58,6 +65,12 @@ class Cell:
         """The module of ``modes/<mode>.py``, the mode the cell's mix names."""
         from .program import load_mode
         return load_mode(self.mix["mode"], self.here)
+
+    def build(self):
+        """The module of ``builds/<build>.py``, the build the cell's
+        configuration names."""
+        from .program import load_build
+        return load_build(self.config["build"], self.here)
 
     def reader(self, metric: str):
         """The ``read`` function of ``metrics/<metric>.py``."""

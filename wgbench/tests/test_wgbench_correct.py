@@ -7,7 +7,7 @@ a card is skipped, the rest of a run is driven."""
 import pytest
 import torch
 
-from wgbench import check, inputs
+from wgbench import check
 from wgbench.run import run_cell
 from wgbench.tests.tiny import tiny_cell
 
@@ -24,18 +24,27 @@ def test_sound_runs_are_correct(tmp_path, name):
     assert _run(tmp_path, name)["correct"]
 
 
+def test_compared_batches_past_the_window_are_judged(tmp_path):
+    """A window that closes after its first batch still judges every compared
+    batch: those it did not reach run after it, untimed, and are late, not
+    missing (a missing one would read an infinite gap)."""
+    res = run_cell(tiny_cell(str(tmp_path), "sage-products.infer"), 21, 0.0, False,
+                   device="cpu", t0=0.0)
+    assert res["attempted"] == 1
+    assert res["correct"] and res["checks"]["logit_gap"]["value"] < 1e-4
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_is_not_correct(tmp_path, name):
     cell = tiny_cell(str(tmp_path), name)
-    mod, seed = cell.mode(), 23
+    mod, make, seed = cell.mode(), cell.build().make_inputs, 23
     dev = torch.device("cpu")
     steps = getattr(mod, "CHECKED", 0) + getattr(mod, "CAPTURED_COMPARED", 0)
     prog = {"losses": [0.0] * steps, "saved": {i: None for i in range(int(cell.mix.get(
         "compare_batches", 0)))}}
-    f32 = mod.reference_record(cell.config, cell.mix, seed,
-                               inputs.make_all(cell.config, seed, dev), prog)
-    tf32 = mod.reference_record(cell.config, cell.mix, seed,
-                                inputs.make_all(cell.config, seed, dev), prog, "tf32")
+    f32 = mod.reference_record(cell.config, cell.mix, seed, make(cell.config, seed, dev), prog)
+    tf32 = mod.reference_record(cell.config, cell.mix, seed, make(cell.config, seed, dev), prog,
+                                "tf32")
     ok, _, _ = check.judge(mod.compare(tf32, f32)["numbers"], cell.limits["limits"])
     assert not ok
 

@@ -5,15 +5,16 @@ evaluation batches, a full-graph pass) timed with and without a
 
   python3 -m wgbench.timeline_cost --workload <cell> --seed <n> [--pairs 3]
 
-Set-up is the benchmark's (``run.run_cell``'s inputs, build and the mode's
-set-up). A training pass replays a CUDA graph of the step, and a graph
-captured inside a Timeline is replayed only inside it, so each switch
-between the two runs one untimed unit (for a training pass, the one that
-captures the step again); the timed units that follow replay it. Turns go off, on, on, off, ... (one
-pair is one of each). Each time is the host clock over the work, the card
-synchronised before and after. Prints one JSON line with every turn's
-seconds, the medians and the median's overhead in %, beside the card's
-name and power limit.
+Set-up is the benchmark's (``run.run_cell``'s inputs and objects, by the
+cell's build, and the mode's set-up). A training pass replays a CUDA graph
+of the step, and a graph captured inside a Timeline is replayed only
+inside it, so each switch between the two runs one untimed unit (for a
+training pass, the one that captures the step again); the timed units that
+follow replay it. Turns go off, on, on, off, ... (one pair is one of
+each). Each time is the host clock over the work, the card synchronised
+before and after. Prints one JSON line with every turn's seconds, the
+medians and the median's overhead in %, beside the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--pairs", type=int, default=3)
     args = ap.parse_args(argv)
-    from . import inputs as I, program, spec
+    from . import spec
     from .metrics import _timeline as T
     from .run import Run, cache_dirs, card_state
 
@@ -56,8 +57,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     cell = spec.Cell(spec.load_benchmark(), args.workload)
     run = Run(cell, args.seed, "cuda")
-    run.inputs = I.make_all(run.cfg, run.seed, run.device)
-    run.built = program.Built(run.cfg, run.mix, run.inputs, run.device)
+    run.make()
     mode = cell.mode().Runner(run)
     mode.setup()
     unit, what = T.unit_of(run.mix["mode"]).unit(mode)
